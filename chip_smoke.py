@@ -6,23 +6,34 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi);
-2. build: compile csrc/*.cu with nvcc for sm_90a, load, run the probe;
-3. every kernel of the main path against its plain PyTorch twin on the
-   card, at the main path's shapes, with both times;
+2. build: compile csrc/*.cu with nvcc for sm_90a (one nvcc per source, all
+   started together), load, run the probe;
+3. every kernel against its plain PyTorch twin on the card, at the shapes
+   its path gives it, with both times (and, for the two z-score kernels,
+   the kernel's time at the other EM structure's typical kept fraction);
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
-   output files and that every kernel was launched;
+   output files and that its kernels were launched;
 5. parity on the card at 100,000 sites: reference AF and LOO
-   log-likelihoods from the kernels against the twins.
+   log-likelihoods from the kernels against the twins;
+6. the z-score path on phase 4's cohort, its AF files and a synthetic
+   allele-depth file, scoring all 180 individuals: (a)
+   ``--get_reference_z_score --get_assignment_z_score`` (the loo-structured
+   EM, ``zloo_chunk``), (b) ``--get_reference_z_score
+   --single_read_threshold`` (the gathered EM, ``sites_chunk``);
+7. parity on the card at 100,000 sites: reference z-scores in both EM
+   structures from the kernels against the twins, and assignment z-scores
+   on the card against the same run on the CPU.
 
-The line before the last is a JSON object with each kernel's launches in
-phase 4, its largest difference from the twin and both times in phase 3;
-the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
-without the rest of the repository beside it, the script exits non-zero
-and prints no result.
+The line before the last is a JSON object with each kernel's launches on
+its path (phase 4, 6a or 6b), its largest difference from the twin and both
+times in phase 3; the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the rest of the repository beside it, the script
+exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -39,14 +50,28 @@ FT_ATOL, SQ_RTOL = 1e-6, 1e-5
 # parity of the whole path: EM trajectories over up to 200 iterations, and
 # log-likelihood sums over M sites (as tests/test_cli.py for the JAX CLI)
 AF_ATOL, LL_RTOL, LL_ATOL = 1e-5, 1e-5, 2e-3
+# z-scores: float32 sums over up to ~1M kept sites in another order (the JAX
+# goldens hold z to 2e-3, tests/test_zscore.py)
+Z_ATOL = 2e-3
 
 PALLAS = "wgsassign_tpu/ops/pallas_emmaf.py"
+# kernel -> (source, TPU kernel it replaces, phase whose path launches it)
 KERNELS = {
     "probe": ("wgsassign_tpu_torch/csrc/probe.cu",
-              "wgsassign_tpu/parallel/mesh.py:125"),
-    "em_chunk": ("wgsassign_tpu_torch/csrc/em_chunk.cu", f"{PALLAS}:220"),
-    "loo_chunk": ("wgsassign_tpu_torch/csrc/loo_chunk.cu", f"{PALLAS}:680"),
+              "wgsassign_tpu/parallel/mesh.py:125", "4"),
+    "em_chunk": ("wgsassign_tpu_torch/csrc/em_chunk.cu", f"{PALLAS}:220",
+                 "4"),
+    "loo_chunk": ("wgsassign_tpu_torch/csrc/loo_chunk.cu", f"{PALLAS}:680",
+                  "4"),
+    "zloo_chunk": ("wgsassign_tpu_torch/csrc/zloo_chunk.cu",
+                   f"{PALLAS}:1174", "6a"),
+    "sites_chunk": ("wgsassign_tpu_torch/csrc/sites_chunk.cu",
+                    f"{PALLAS}:1068", "6b"),
 }
+
+
+def paths_kernels(path):
+    return [name for name, (_, _, p) in KERNELS.items() if p == path]
 
 
 def phase(name, t0, **info):
@@ -79,6 +104,18 @@ def random_gls(rows, cols, gen, dev):
     e = -torch.log1p(-torch.rand((3, rows, cols), generator=gen, device=dev))
     e /= e.sum(dim=0, keepdim=True)
     return e[0].contiguous(), e[1].contiguous()
+
+
+def random_panels(b, p, s, gen, dev):
+    """``[b, p, s]`` gathered member GL panels, made one problem at a
+    time (the [3, b * p, s] draw would take 3x the panels' memory)."""
+    import torch
+
+    g0 = torch.empty((b, p, s), device=dev)
+    g1 = torch.empty((b, p, s), device=dev)
+    for i in range(b):
+        g0[i], g1[i] = random_gls(p, s, gen, dev)
+    return g0, g1
 
 
 def check_pair(name, got, want, sq_got, sq_want):
@@ -151,6 +188,83 @@ def kernels_vs_twins(dev, results):
             lambda: loo_chunk_twin(g0p, g1p, ftp, limp, n_real, T), 2),
         shape=f"n_real={n_real} P={p} M={m} T={T}",
     )
+    del g0p, g1p, ftp, f_k, f_t
+    zscore_kernels_vs_twins(dev, gen, results)
+
+
+def zscore_kernels_vs_twins(dev, gen, results):
+    """Phase 3, the z-score EM kernels: zLOO at one population's share of
+    a 64-individual AF group over 1M sites (kept fraction ~0.86, the
+    loo-structured path's), sites at phase 6b's gathered block (64
+    problems, 35 members, 524,288 kept-site slots).  Each is also timed at
+    the other structure's typical kept fraction."""
+    import torch
+
+    from wgsassign_tpu_torch.ops.sites_chunk import (
+        sites_chunk,
+        sites_chunk_twin,
+    )
+    from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk, zloo_chunk_twin
+
+    m, n_real, b, T = M_MAIN, 36, 13, 8
+    g0p, g1p = random_gls(n_real, m, gen, dev)
+    ft = 0.05 + 0.9 * torch.rand((b, m), generator=gen, device=dev)
+    sw = (torch.rand((b, m), generator=gen, device=dev) < 0.86).float()
+    leave = torch.randperm(n_real, generator=gen, device=dev)[:b].to(
+        torch.int32)
+    lim = torch.full((b,), float(T), device=dev)
+    lim[2], lim[5] = 3.0, 0.0
+    args = (g0p, g1p, ft, sw, leave, lim, n_real, T)
+    errs = []
+    for fast in (True, False):
+        f_k, sq_k = zloo_chunk(*args, fast)
+        f_t, sq_t = zloo_chunk_twin(*args, fast)
+        errs.append(check_pair(f"zloo_chunk fast_math={fast}", f_k, f_t,
+                               sq_k, sq_t))
+    sw_low = (torch.rand((b, m), generator=gen, device=dev) < 0.27).float()
+    results["zloo_chunk"].update(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: zloo_chunk(*args), 5),
+        plain_ms=time_ms(lambda: zloo_chunk_twin(*args), 2),
+        other_fill_ms=time_ms(
+            lambda: zloo_chunk(g0p, g1p, ft, sw_low, leave, lim, n_real, T),
+            5),
+        shape=f"n_real={n_real} B={b} M={m} T={T} fill=0.86",
+        other_shape="fill=0.27",
+    )
+    del g0p, g1p, ft, sw, sw_low, f_k, f_t
+
+    for b, p, s, timed in ((64, 35, 524_288, "main"),
+                           (16, 35, 1_048_576, "other")):
+        g0s, g1s = random_panels(b, p, s, gen, dev)
+        ft = 0.05 + 0.9 * torch.rand((b, s), generator=gen, device=dev)
+        mask = (torch.rand((b, p), generator=gen, device=dev) < 0.9).float()
+        mask[:, 0] = 1.0
+        inv = 1.0 / mask.sum(dim=1)
+        kept = (0.5 + 0.02 * torch.rand((b,), generator=gen, device=dev)) * s
+        sw = (torch.arange(s, device=dev)[None, :] < kept[:, None]).float()
+        lim = torch.full((b,), float(T), device=dev)
+        lim[1], lim[4] = 2.0, 0.0
+        args = (g0s, g1s, ft, mask, sw, lim, inv, T)
+        if timed == "other":
+            results["sites_chunk"].update(
+                other_fill_ms=time_ms(lambda: sites_chunk(*args), 5),
+                other_shape=f"B={b} S={s} fill=0.86")
+            continue
+        errs = []
+        for fast in (True, False):
+            f_k, sq_k = sites_chunk(*args, fast)
+            f_t, sq_t = sites_chunk_twin(*args, fast)
+            errs.append(check_pair(f"sites_chunk fast_math={fast}", f_k, f_t,
+                                   sq_k, sq_t))
+        results["sites_chunk"].update(
+            max_abs_err=max(errs),
+            ms=time_ms(lambda: sites_chunk(*args), 5),
+            plain_ms=time_ms(lambda: sites_chunk_twin(*args), 2),
+            shape=f"B={b} P={p} S={s} T={T} fill=0.27",
+        )
+        del g0s, g1s, f_k, f_t
+        torch.cuda.empty_cache()
 
 
 def synth_file(m, n, k, seed):
@@ -167,6 +281,32 @@ def synth_file(m, n, k, seed):
         for i in range(n):  # synth_cohort's population of individual i
             f.write(f"Ind{i}\tpop{i % k}\n")
     return beagle, ids
+
+
+def write_synth_ad(path, m, n, k, seed, chunk=100_000):
+    """The allele depths behind ``synth_beagle_file(path, m, n, n_pops=k,
+    seed=seed, chunk=chunk)``: each site chunk is regenerated with the same
+    ``synth_cohort`` call, so row r of this file belongs to site r of that
+    Beagle file.  Plain text, one space-separated row of 2n integers per
+    site, rendered through a byte lookup table."""
+    import numpy as np
+
+    from wgsassign_tpu.io.synth import synth_cohort
+
+    with open(path, "wb") as f:
+        for lo in range(0, m, chunk):
+            hi = min(lo + chunk, m)
+            _, _, ad = synth_cohort(hi - lo, n, n_pops=k, seed=seed + 1 + lo)
+            width = len(str(int(ad.max())))
+            table = np.frombuffer(
+                "".join(str(v).rjust(width) for v in range(10 ** width))
+                .encode(), np.uint8).reshape(-1, width)
+            rows = np.empty(ad.shape + (width + 1,), np.uint8)
+            rows[..., :width] = table[ad]
+            rows[..., width] = ord(" ")
+            rows[:, -1, width] = ord("\n")
+            f.write(rows.tobytes())
+    return path
 
 
 def main_path(results):
@@ -188,7 +328,7 @@ def main_path(results):
                       "--get_reference_af", "--loo", "-o", out])
     counts = dict(_kernels.launches)
     wall = time.perf_counter() - t0
-    for name in KERNELS:
+    for name in paths_kernels("4"):
         results[name]["launches"] = counts.get(name, 0)
         if not counts.get(name):
             raise AssertionError(f"the main path never launched {name}")
@@ -256,6 +396,126 @@ def parity(dev):
           loo_iters=f"{loo_k.iters.min()}..{loo_k.iters.max()}")
 
 
+def read_z_file(path, n):
+    import numpy as np
+
+    z = np.loadtxt(path, ndmin=1)
+    if z.shape != (n,) or not np.isfinite(z).all():
+        raise AssertionError(f"{path}: shape {z.shape} or non-finite values")
+    return z
+
+
+def zscore_path(results):
+    """Phase 6: the z-score CLI on phase 4's cohort and AF files."""
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    beagle, ids = synth_file(M_MAIN, N_MAIN, K_MAIN, SEED)
+    ad = beagle[: -len(".beagle.gz")] + ".ad.txt"
+    if not os.path.exists(ad):
+        write_synth_ad(ad + ".tmp", M_MAIN, N_MAIN, K_MAIN, SEED)
+        os.replace(ad + ".tmp", ad)
+    phase("6 synth-ad-file", t0, bytes=os.path.getsize(ad))
+    main = os.path.join(WORK, "main")
+    common = ["--beagle", beagle, "--pop_af_IDs", ids, "--ind_ad_file", ad,
+              "--pop_names", main + ".pop_names.txt"]
+    runs = (
+        ("6a", ["--get_reference_z_score", "--get_assignment_z_score",
+                "--pop_af_file", main + ".pop_af.npy"],
+         (".reference_z_ind.txt", ".z_ind.txt")),
+        ("6b", ["--get_reference_z_score", "--single_read_threshold"],
+         (".reference_z_ind.txt",)),
+    )
+    for path, flags, outputs in runs:
+        out = os.path.join(WORK, f"z{path}")
+        t0 = time.perf_counter()
+        _kernels.launches.clear()
+        # the CLI prints six lines per individual: keep them in a log
+        with open(out + ".log", "w") as log, contextlib.redirect_stdout(log):
+            timer = cli_main([*common, *flags, "-o", out])
+        counts = dict(_kernels.launches)
+        wall = time.perf_counter() - t0
+        for name in paths_kernels(path):
+            results[name]["launches"] = counts.get(name, 0)
+            if not counts.get(name):
+                raise AssertionError(f"z-score run {path} never launched "
+                                     f"{name}")
+        other = "sites_chunk" if path == "6a" else "zloo_chunk"
+        if counts.get(other):
+            raise AssertionError(f"z-score run {path} launched {other}")
+        for suffix in outputs:
+            read_z_file(out + suffix, N_MAIN)
+        with open(out + ".log") as log:
+            em_line = next((ln.strip() for ln in log
+                            if ln.startswith("Reference z-score EM")), "")
+        phases = {k: round(v, 3) for k, v in timer.totals.items()}
+        phase(f"{path} zscore-cli", t0, wall_s=f"{wall:.3f}",
+              flags=",".join(f for f in flags if f.startswith("--get")
+                             or f.startswith("--single")),
+              launches=json.dumps(counts, sort_keys=True),
+              phases_s=json.dumps(phases, sort_keys=True),
+              em=repr(em_line))
+
+
+def zscore_parity(dev):
+    """Phase 7: reference z-scores in both EM structures with the kernels
+    against the twins, and assignment z-scores on the card against the
+    CPU, at 100,000 sites."""
+    import numpy as np
+
+    from wgsassign_tpu.io.beagle import BeagleData
+    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_tpu.io.synth import synth_cohort
+    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.zscore import (
+        assignment_z_scores,
+        reference_z_scores,
+    )
+    from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk_twin
+    from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk_twin
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    t0 = time.perf_counter()
+    gl, labels, ad = synth_cohort(M_PARITY, N_MAIN, n_pops=K_MAIN,
+                                  seed=SEED + 1)
+    names = [f"Ind{i}" for i in range(N_MAIN)]
+    beagle = BeagleData(gl, names, [f"s{i}" for i in range(M_PARITY)])
+    popmap = population_map(names, labels)
+    cohort = to_device(beagle, make_runtime(dev))
+    info = {}
+    for single_read, want in ((False, "loo-structured"), (True, "gathered")):
+        kw = dict(single_read_threshold=single_read, cohort=cohort)
+        got = reference_z_scores(beagle, ad, popmap, **kw)
+        ref = reference_z_scores(beagle, ad, popmap, zloo_op=zloo_chunk_twin,
+                                 sites_op=sites_chunk_twin, **kw)
+        if got.structure != want or ref.structure != want:
+            raise AssertionError(f"structure {got.structure}, wanted {want}")
+        if not np.array_equal(got.loci, ref.loci):
+            raise AssertionError(f"{want}: loci differ")
+        if not np.array_equal(got.em_iters, ref.em_iters):
+            raise AssertionError(f"{want}: EM iterations differ")
+        err = float(np.abs(got.z - ref.z).max())
+        if not err <= Z_ATOL:
+            raise AssertionError(f"{want}: z differs by {err}")
+        info[want] = (f"fill={got.fill:.4f},iters={got.em_iters.min()}.."
+                      f"{got.em_iters.max()},z_max_abs_err={err}")
+    af = np.random.default_rng(SEED).uniform(
+        0.05, 0.95, (M_PARITY, K_MAIN)).astype(np.float32)
+    pops = np.asarray([f"pop{j}" for j in range(K_MAIN)])
+    got = assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort)
+    ref = assignment_z_scores(beagle, ad, labels, af, pops,
+                              runtime=make_runtime("cpu"))
+    if not np.array_equal(got.loci, ref.loci):
+        raise AssertionError("assignment: loci differ")
+    err = float(np.abs(got.z - ref.z).max())
+    if not err <= Z_ATOL:
+        raise AssertionError(f"assignment: z differs from the CPU by {err}")
+    info["assignment"] = f"z_max_abs_err_vs_cpu={err}"
+    phase("7 zscore-parity", t0, M=M_PARITY, **{
+        k.replace("-", "_"): v for k, v in info.items()})
+
+
 def main():
     import torch
 
@@ -284,17 +544,23 @@ def main():
 
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep}
-               for name, (src, rep) in KERNELS.items()}
+               for name, (src, rep, _) in KERNELS.items()}
     t0 = time.perf_counter()
     kernels_vs_twins(dev, results)
     phase("3 kernels-vs-twins", t0, **{
         n: f"{r['ms']:.3f}ms/plain={r['plain_ms']:.3f}ms/err={r['max_abs_err']}"
+           + (f"/{r['other_shape']}:{r['other_fill_ms']:.3f}ms"
+              if "other_fill_ms" in r else "")
         for n, r in results.items()})
     torch.cuda.empty_cache()
 
     main_path(results)
     torch.cuda.empty_cache()
     parity(dev)
+    torch.cuda.empty_cache()
+    zscore_path(results)
+    torch.cuda.empty_cache()
+    zscore_parity(dev)
 
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",

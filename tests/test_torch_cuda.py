@@ -20,9 +20,17 @@ from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk, em_chunk_twin
 from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_group_fused,
+    em_maf_loo_subset_fused,
     em_maf_pops_fused,
+    em_maf_sites_batch_fused,
 )
 from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk, loo_chunk_twin
+from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk, sites_chunk_twin
+from wgsassign_tpu_torch.ops.zloo_chunk import (
+    max_zloo_members,
+    zloo_chunk,
+    zloo_chunk_twin,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -122,5 +130,97 @@ def test_fused_ems_kernel_vs_twin(cuda):
     f_k, it_k, _ = em_maf_loo_group_fused(g0p, g1p, m, 200, 1e-4)
     f_t, it_t, _ = em_maf_loo_group_fused(g0p, g1p, m, 200, 1e-4,
                                           chunk_op=loo_chunk_twin)
+    np.testing.assert_array_equal(it_k, it_t)
+    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+def test_zloo_chunk_kernel_matches_twin(cuda, fast_math):
+    g0p, g1p = _gls(16, 1000, 7)
+    g0p[11:], g1p[11:] = 1.0, 0.0
+    rng = np.random.default_rng(8)
+    ft = rng.uniform(0.05, 0.95, size=(5, 1000)).astype(np.float32)
+    sw = (rng.random((5, 1000)) < 0.6).astype(np.float32)
+    leave = np.asarray([0, 4, 10, 7, 2], np.int32)
+    lim = np.asarray([6, 2, 0, 6, 1], np.float32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (g0p, g1p, ft, sw, leave, lim)]
+    before = _kernels.launches["zloo_chunk"]
+    f_k, sq_k = zloo_chunk(*args, 11, 6, fast_math=fast_math)
+    assert _kernels.launches["zloo_chunk"] == before + 1
+    f_t, sq_t = zloo_chunk_twin(*args, 11, 6, fast_math=fast_math)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+    torch.testing.assert_close(args[2], torch.from_numpy(ft).to(cuda),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+@pytest.mark.parametrize("p", [9, 300])  # 300: the 64-site tile
+def test_sites_chunk_kernel_matches_twin(cuda, fast_math, p):
+    b, s = 4, 700  # ragged last site block
+    raw = np.random.default_rng(9).dirichlet(np.ones(3), size=(b, p, s))
+    g0p = raw[..., 0].astype(np.float32)
+    g1p = raw[..., 1].astype(np.float32)
+    rng = np.random.default_rng(10)
+    ft = rng.uniform(0.05, 0.95, size=(b, s)).astype(np.float32)
+    mask = (rng.random((b, p)) < 0.7).astype(np.float32)
+    mask[:, 0] = 1.0
+    sw = (rng.random((b, s)) < 0.5).astype(np.float32)
+    lim = np.asarray([5, 0, 2, 5], np.float32)
+    inv = (1.0 / mask.sum(axis=1)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (g0p, g1p, ft, mask, sw, lim, inv)]
+    before = _kernels.launches["sites_chunk"]
+    f_k, sq_k = sites_chunk(*args, 5, fast_math=fast_math)
+    assert _kernels.launches["sites_chunk"] == before + 1
+    f_t, sq_t = sites_chunk_twin(*args, 5, fast_math=fast_math)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+
+
+def test_zloo_member_bound_raises(cuda):
+    bound = max_zloo_members(4, 2)
+    n = bound + 1
+    g = torch.full((n, 64), 0.3, device=cuda)
+    args = (g, g, torch.full((2, 64), 0.25, device=cuda),
+            torch.ones((2, 64), device=cuda),
+            torch.zeros(2, dtype=torch.int32, device=cuda),
+            torch.full((2,), 4.0, device=cuda))
+    with pytest.raises(ValueError, match=f"bound of {bound} members"):
+        zloo_chunk(*args, n, 4)
+
+
+def test_zscore_fused_ems_kernel_vs_twin(cuda):
+    """Whole chunk/replay runs of the two z-score EMs: equal iterations."""
+    g0p, g1p = _gls(12, 3000, 11)
+    rng = np.random.default_rng(12)
+    sw = torch.from_numpy((rng.random((5, 3000)) < 0.8).astype(
+        np.float32)).to(cuda)
+    g0d, g1d = torch.from_numpy(g0p).to(cuda), torch.from_numpy(g1p).to(cuda)
+    leave = np.asarray([0, 3, 5, 8, 11], np.int32)
+    m_real = sw.sum(dim=1).cpu().numpy()
+    f_k, it_k, _ = em_maf_loo_subset_fused(g0d, g1d, leave, sw, m_real,
+                                           200, 1e-4)
+    f_t, it_t, _ = em_maf_loo_subset_fused(g0d, g1d, leave, sw, m_real,
+                                           200, 1e-4,
+                                           chunk_op=zloo_chunk_twin)
+    np.testing.assert_array_equal(it_k, it_t)
+    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-5)
+
+    raw = np.random.default_rng(13).dirichlet(np.ones(3), size=(6, 10, 2048))
+    g0s = torch.from_numpy(raw[..., 0].astype(np.float32)).to(cuda)
+    g1s = torch.from_numpy(raw[..., 1].astype(np.float32)).to(cuda)
+    mask = np.ones((6, 10), np.float32)
+    mask[2, 7:] = 0.0
+    kept = np.asarray([2048, 1500, 900, 2000, 64, 1024])
+    sws = (np.arange(2048)[None, :] < kept[:, None]).astype(np.float32)
+    f_k, it_k, _ = em_maf_sites_batch_fused(g0s, g1s, mask, sws, kept,
+                                            200, 1e-4)
+    f_t, it_t, _ = em_maf_sites_batch_fused(g0s, g1s, mask, sws, kept,
+                                            200, 1e-4,
+                                            chunk_op=sites_chunk_twin)
     np.testing.assert_array_equal(it_k, it_t)
     torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-5)

@@ -1,0 +1,95 @@
+"""The port's sites-batch chunk (``wgsassign_tpu_torch.ops.sites_chunk``)
+against the JAX package's Pallas sites chunk kernel, run in interpret mode
+on the CPU.
+
+Tolerances: ``ft`` atol 2e-6, ``sq`` rtol 1e-5 (member sums in another
+order than the Pallas reduction), as test_torch_loo_chunk.py."""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax.numpy as jnp
+
+from wgsassign_tpu.ops.pallas_emmaf import sites_chunk_pallas
+from wgsassign_tpu_torch import _kernels
+from wgsassign_tpu_torch.ops.sites_chunk import (
+    max_sites_members,
+    sites_chunk,
+    sites_chunk_geometry,
+    sites_chunk_twin,
+)
+
+B, P, S, T = 5, 9, 128, 4
+
+
+def _sites_inputs(b=B, p=P, s=S, seed=7):
+    rng = np.random.default_rng(seed)
+    raw = rng.dirichlet(np.ones(3), size=(b, p, s)).astype(np.float32)
+    g0p, g1p = raw[..., 0].copy(), raw[..., 1].copy()
+    ft = rng.uniform(0.05, 0.95, size=(b, s)).astype(np.float32)
+    mask = (rng.random((b, p)) < 0.7).astype(np.float32)
+    mask[:, 0] = 1.0  # at least one member per problem
+    sw = (rng.random((b, s)) < 0.6).astype(np.float32)
+    inv = (1.0 / mask.sum(axis=1)).astype(np.float32)
+    return g0p, g1p, ft, mask, sw, inv
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+@pytest.mark.parametrize("limits", [
+    [4, 4, 4, 4, 4],   # every problem runs the whole chunk
+    [4, 1, 0, 3, 4],   # mixed per-problem limits (a replay)
+])
+def test_twin_matches_pallas_chunk(fast_math, limits):
+    g0p, g1p, ft, mask, sw, inv = _sites_inputs()
+    lim = np.asarray(limits, np.float32)
+    f_ref, sq_ref = sites_chunk_pallas(
+        jnp.asarray(g0p), jnp.asarray(g1p), jnp.asarray(ft[:, None, :]),
+        jnp.asarray(mask[:, None, :]), jnp.asarray(sw[:, None, :]),
+        jnp.asarray(lim.reshape(B, 1, 1)), jnp.asarray(inv.reshape(B, 1, 1)),
+        T, interpret=True, fast_math=fast_math,
+    )
+    f, sq = sites_chunk(*map(torch.from_numpy,
+                             (g0p, g1p, ft, mask, sw, lim, inv)),
+                        T, fast_math=fast_math)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref)[:, 0, :], rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,
+                               atol=0)
+    for b in np.flatnonzero(lim == 0):
+        np.testing.assert_array_equal(f.numpy()[b], ft[b])
+
+
+def test_wrapper_runs_twin_on_cpu_and_keeps_input():
+    g0p, g1p, ft, mask, sw, inv = _sites_inputs(s=40)
+    args = [torch.from_numpy(a) for a in
+            (g0p, g1p, ft, mask, sw, np.full(B, 3, np.float32), inv)]
+    ft_before = args[2].clone()
+    before = _kernels.launches["sites_chunk"]
+    f_w, sq_w = sites_chunk(*args, 3)
+    f_t, sq_t = sites_chunk_twin(*args, 3)
+    torch.testing.assert_close(f_w, f_t, rtol=0, atol=0)
+    torch.testing.assert_close(sq_w, sq_t, rtol=0, atol=0)
+    torch.testing.assert_close(args[2], ft_before, rtol=0, atol=0)
+    assert _kernels.launches["sites_chunk"] == before
+
+
+@pytest.mark.parametrize("p,block_sites", [
+    (35, 128),    # the headline population less the scored individual
+    (300, 64),
+    (800, 32),
+])
+def test_geometry_picks_widest_tile(p, block_sites):
+    s, smem = sites_chunk_geometry(p, 8)
+    assert s == block_sites
+    assert smem <= _kernels.SMEM_LIMIT
+
+
+def test_member_bound_raises():
+    bound = max_sites_members(8)
+    assert bound == 907
+    sites_chunk_geometry(bound, 8)
+    with pytest.raises(ValueError, match="907 members"):
+        sites_chunk_geometry(bound + 1, 8)

@@ -1,0 +1,298 @@
+"""The port's z-score path (``wgsassign_tpu_torch.models.zscore``) against
+the JAX package on the CPU, at the model level.
+
+The JAX side runs on a one-device runtime with the Pallas kernels forced on,
+so its fused EMs run the TPU kernels in interpret mode; the port runs its
+kernels' plain twins.  Tolerances:
+- fused EM drivers vs the JAX plain EMs: equal iterations and convergence
+  flags, AF atol 2e-6 at kept sites (member sums in another order);
+- z sums vs the JAX op: rtol 1e-6, atol 1e-4 (as tests/test_zscore.py holds
+  the JAX op to its legacy form);
+- host tables: exactly equal (the same numpy code);
+- whole-path z, w_obs, w_mu, w_var: rtol 1e-4, atol 1e-4 (float32 sums over
+  ~1000 kept sites in another order); loci and EM iterations equal.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax
+import jax.numpy as jnp
+
+from wgsassign_tpu.io.beagle import BeagleData
+from wgsassign_tpu.io.ids import population_map
+from wgsassign_tpu.io.synth import synth_cohort
+from wgsassign_tpu_torch.models import zscore as tz
+from wgsassign_tpu_torch.models.common import to_device
+from wgsassign_tpu_torch.ops.fused_em import (
+    em_maf_loo_subset_fused,
+    em_maf_sites_batch_fused,
+)
+from wgsassign_tpu_torch.ops.zscore_ops import zscore_sums_batch_compact
+from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+M, N, K = 1024, 20, 2
+
+
+def _gls(shape, seed):
+    raw = np.random.default_rng(seed).dirichlet(np.ones(3), size=shape)
+    raw = raw.astype(np.float32)
+    return raw[..., 0].copy(), raw[..., 1].copy()
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+def test_loo_subset_fused_matches_jax_em(fast_math):
+    from wgsassign_tpu.ops.emmaf import em_maf_loo_subset
+
+    n_p, m, b = 7, 300, 4
+    g0p, g1p = _gls((n_p, m), 11)
+    rng = np.random.default_rng(12)
+    sw = (rng.random((b, m)) < 0.6).astype(np.float32)
+    leave = np.asarray([0, 3, 6, 2], np.int32)
+    m_real = sw.sum(axis=1)
+    f_ref, it_ref, conv_ref = em_maf_loo_subset(
+        jnp.asarray(g0p), jnp.asarray(g1p), jnp.asarray(leave),
+        jnp.asarray(sw), jnp.asarray(m_real), 200, 1e-4)
+    f, it, conv = em_maf_loo_subset_fused(
+        torch.from_numpy(g0p), torch.from_numpy(g1p), leave,
+        torch.from_numpy(sw), m_real, 200, 1e-4, fast_math=fast_math)
+    np.testing.assert_array_equal(it, np.asarray(it_ref))
+    np.testing.assert_array_equal(conv, np.asarray(conv_ref))
+    kept = sw > 0
+    np.testing.assert_allclose(f.numpy()[kept], np.asarray(f_ref)[kept],
+                               rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+def test_sites_batch_fused_matches_jax_em(fast_math):
+    from wgsassign_tpu.ops.emmaf import em_maf_sites_batch
+
+    b, p, s = 4, 6, 256
+    g0p, g1p = _gls((b, p, s), 13)
+    rng = np.random.default_rng(14)
+    mask = (rng.random((b, p)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+    sw = (np.arange(s)[None, :] < np.asarray([256, 200, 131, 77])[:, None])
+    sw = sw.astype(np.float32)
+    m_real = sw.sum(axis=1)
+    f_ref, it_ref, conv_ref = em_maf_sites_batch(
+        jnp.asarray(g0p), jnp.asarray(g1p), jnp.asarray(mask),
+        jnp.asarray(sw), jnp.asarray(m_real), 200, 1e-4)
+    f, it, conv = em_maf_sites_batch_fused(
+        torch.from_numpy(g0p), torch.from_numpy(g1p), mask, sw, m_real,
+        200, 1e-4, fast_math=fast_math)
+    np.testing.assert_array_equal(it, np.asarray(it_ref))
+    np.testing.assert_array_equal(conv, np.asarray(conv_ref))
+    kept = sw > 0
+    np.testing.assert_allclose(f.numpy()[kept], np.asarray(f_ref)[kept],
+                               rtol=0, atol=2e-6)
+
+
+def test_plain_ems_match_jax_em():
+    """The port's plain EMs, the references of the fused drivers."""
+    from wgsassign_tpu.ops.emmaf import em_maf_loo_subset as jax_loo_subset
+    from wgsassign_tpu.ops.emmaf import em_maf_sites_batch as jax_sites
+    from wgsassign_tpu_torch.ops.emmaf import (
+        em_maf_loo_subset,
+        em_maf_sites_batch,
+    )
+
+    g0p, g1p = _gls((5, 200), 15)
+    sw = (np.random.default_rng(16).random((3, 200)) < 0.5).astype(np.float32)
+    leave = np.asarray([4, 0, 1], np.int32)
+    args = (g0p, g1p, leave, sw, sw.sum(axis=1))
+    f_r, it_r, _ = jax_loo_subset(*map(jnp.asarray, args), 200, 1e-4)
+    f, it, _ = em_maf_loo_subset(*map(torch.from_numpy, args), 200, 1e-4)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(it_r))
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_r), rtol=0, atol=2e-6)
+
+    g0b, g1b = _gls((3, 5, 200), 17)
+    mask = np.ones((3, 5), np.float32)
+    mask[1, 4] = 0.0
+    args = (g0b, g1b, mask, sw, sw.sum(axis=1))
+    f_r, it_r, _ = jax_sites(*map(jnp.asarray, args), 200, 1e-4)
+    f, it, _ = em_maf_sites_batch(*map(torch.from_numpy, args), 200, 1e-4)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(it_r))
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_r), rtol=0, atol=2e-6)
+
+
+def test_zsums_match_jax_op():
+    """The random tables of tests/test_zscore.py::test_compact_zsums_match_legacy."""
+    from wgsassign_tpu.ops.zscore_ops import (
+        zscore_sums_batch_compact as jax_zsums,
+    )
+
+    rng = np.random.default_rng(97)
+    b, s, c, r = 3, 64, 6, 12
+    gl = rng.dirichlet(np.ones(3), (b, s)).astype(np.float32)
+    g0k, g1k = gl[:, :, 0].copy(), gl[:, :, 1].copy()
+    a = rng.uniform(0.05, 0.95, (b, s)).astype(np.float32)
+    weight = (rng.random((b, s)) < 0.8).astype(np.float32)
+    depth = rng.integers(1, c, (b, s)).astype(np.int32)
+    rows_by_depth = rng.integers(0, r, (b, c, c)).astype(np.int32)
+    like_tab = rng.dirichlet(np.ones(3), (b, r)).astype(np.float32)
+    fact_tab = rng.uniform(0.01, 1.0, (b, r, 3)).astype(np.float32)
+    args = (g0k, g1k, a, weight, depth, rows_by_depth, like_tab, fact_tab)
+    want = jax_zsums(*map(jnp.asarray, args))
+    got = zscore_sums_batch_compact(*map(torch.from_numpy, args))
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6,
+                                   atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def cohort_data():
+    gl, labels, ad = synth_cohort(M, N, n_pops=K, seed=0)
+    names = [f"Ind{i}" for i in range(N)]
+    beagle = BeagleData(gl, names, [f"s{i}" for i in range(M)])
+    popmap = population_map(names, labels)
+    return beagle, popmap, ad, labels
+
+
+@pytest.mark.parametrize("threshold,single_read", [(0, False), (3, False),
+                                                   (0, True)])
+def test_host_tables_equal_jax(cohort_data, threshold, single_read):
+    from wgsassign_tpu.models import zscore as jz
+
+    beagle, _, ad, _ = cohort_data
+    for i in (0, 7, 19):
+        args = (beagle.gl[:, i, :], ad[:, 2 * i: 2 * i + 2], threshold,
+                single_read)
+        want, got = jz.build_combo_tables(*args), tz.build_combo_tables(*args)
+        for field in ("combos", "mean_gl", "read_probs", "keep_sites",
+                      "site_row", "site_depth", "g0_keep", "g1_keep"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
+        np.testing.assert_array_equal(tz._split_tables(got),
+                                      jz._split_tables(want))
+
+
+def _jax_runtime():
+    from wgsassign_tpu.parallel.mesh import make_runtime as jax_runtime
+
+    return jax_runtime(jax.devices()[:1], use_pallas=True)
+
+
+def _jax_em_iters(beagle, popmap, ad, inds, single_read):
+    """Each individual's LOO EM iterations in the JAX package's plain
+    gathered EM over its kept sites (built from the JAX host tables)."""
+    from wgsassign_tpu.models import zscore as jz
+    from wgsassign_tpu.ops.emmaf import em_maf_sites_batch
+
+    keeps, mems = [], []
+    for i in inds:
+        t = jz.build_combo_tables(beagle.gl[:, i, :], ad[:, 2 * i: 2 * i + 2],
+                                  0, single_read)
+        members = popmap.members_of(popmap.pop_labels[i])
+        keeps.append(t.keep_sites)
+        mems.append(members[members != i])
+    s, p = max(k.size for k in keeps), max(m.size for m in mems)
+    g0p = np.ones((len(inds), p, s), np.float32)
+    g1p = np.zeros((len(inds), p, s), np.float32)
+    mask = np.zeros((len(inds), p), np.float32)
+    sw = np.zeros((len(inds), s), np.float32)
+    for b, (k, mm) in enumerate(zip(keeps, mems)):
+        g0p[b, : mm.size, : k.size] = beagle.gl[k][:, mm, 0].T
+        g1p[b, : mm.size, : k.size] = beagle.gl[k][:, mm, 1].T
+        mask[b, : mm.size] = 1.0
+        sw[b, : k.size] = 1.0
+    _, iters, _ = em_maf_sites_batch(
+        *map(jnp.asarray, (g0p, g1p, mask, sw, np.maximum(sw.sum(1), 1.0))),
+        200, 1e-4)
+    return np.asarray(iters)
+
+
+CASES = {
+    # name: (kwargs, expected reference-mode structure)
+    "default": (dict(), "loo-structured"),
+    "single_read": (dict(single_read_threshold=True), "gathered"),
+    "tiny_blocks": (dict(block_bytes=800_000), "loo-structured"),
+    "ind_range": (dict(ind_start=3, ind_end=14, single_read_threshold=True),
+                  "gathered"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_z_scores_match_jax(cohort_data, case):
+    from wgsassign_tpu.models import zscore as jz
+
+    beagle, popmap, ad, _ = cohort_data
+    kwargs, structure = CASES[case]
+    want = jz.reference_z_scores(beagle, ad, popmap, runtime=_jax_runtime(),
+                                 **kwargs)
+    got = tz.reference_z_scores(beagle, ad, popmap,
+                                runtime=make_runtime("cpu"), **kwargs)
+    assert got.structure == structure
+    np.testing.assert_array_equal(got.loci, want.loci)
+    for field in ("z", "w_obs", "w_mu", "w_var"):
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=1e-4, atol=1e-4, err_msg=field)
+    inds = range(kwargs.get("ind_start", 0), kwargs.get("ind_end", N))
+    np.testing.assert_array_equal(
+        got.em_iters,
+        _jax_em_iters(beagle, popmap, ad, inds,
+                      kwargs.get("single_read_threshold", False)))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_assignment_z_scores_match_jax(cohort_data, case):
+    from wgsassign_tpu.models import zscore as jz
+
+    beagle, _, ad, labels = cohort_data
+    kwargs, _ = CASES[case]
+    af = np.random.default_rng(3).uniform(0.05, 0.95, (M, K)).astype(
+        np.float32)
+    pops = np.asarray([f"pop{j}" for j in range(K)])
+    assigned = labels[::-1]  # another population than the own for some
+    want = jz.assignment_z_scores(beagle, ad, assigned, af, pops,
+                                  runtime=_jax_runtime(), **kwargs)
+    got = tz.assignment_z_scores(beagle, ad, assigned, af, pops,
+                                 runtime=make_runtime("cpu"), **kwargs)
+    assert got.structure == "assignment"
+    np.testing.assert_array_equal(got.loci, want.loci)
+    for field in ("z", "w_obs", "w_mu", "w_var"):
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=1e-4, atol=1e-4, err_msg=field)
+
+
+def test_assignment_af_dim_validation(cohort_data):
+    beagle, _, ad, labels = cohort_data
+    pops = np.asarray([f"pop{j}" for j in range(K)])
+    cohort = to_device(beagle, make_runtime("cpu"))
+    with pytest.raises(ValueError, match="covers 100 sites"):
+        tz.assignment_z_scores(beagle, ad, labels,
+                               np.full((100, K), 0.5, np.float32), pops,
+                               cohort=cohort)
+    with pytest.raises(ValueError, match="has 1 populations"):
+        tz.assignment_z_scores(beagle, ad, labels,
+                               np.full((M, 1), 0.5, np.float32), pops,
+                               cohort=cohort)
+
+
+def test_zscore_modules_never_load_jax():
+    """A fresh interpreter, because this pytest process has imported jax."""
+    code = (
+        "import sys\n"
+        "import wgsassign_tpu_torch.models.zscore\n"
+        "import wgsassign_tpu_torch.ops.zscore_ops\n"
+        "import wgsassign_tpu_torch.ops.zloo_chunk\n"
+        "import wgsassign_tpu_torch.ops.sites_chunk\n"
+        "import wgsassign_tpu_torch.ops.fused_em\n"
+        "import wgsassign_tpu_torch.cli\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('NO_JAX_OK')\n"
+    )
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "NO_JAX_OK" in proc.stdout

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with :mod:`ctypes` (no PyTorch
-headers, so the build takes seconds).  The build happens at first use, into
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` process
+per source, all started together, and linked into one shared library with
+a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so the
+build takes seconds).  The build happens at first use, into
 ``build/wgsassign_tpu_torch_kernels/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags; it is written under a temporary
 name and renamed into place, so concurrent first uses never load a
@@ -31,13 +32,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
               / "wgsassign_tpu_torch_kernels")
-SOURCES = ("probe.cu", "em_chunk.cu", "loo_chunk.cu")
+SOURCES = ("probe.cu", "em_chunk.cu", "loo_chunk.cu", "zloo_chunk.cu",
+           "sites_chunk.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: every multiply and add rounds on its own, as in the plain
 # twins (see csrc/common.cuh); no --use_fast_math, so '/' is IEEE-rounded
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 LIB_NAME = "libwgsassign_kernels.so"
 
@@ -55,6 +58,10 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_loo_chunk": (_I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_zloo_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_sites_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -88,17 +95,37 @@ def build() -> tuple:
     if path.exists():
         return path, 0.0
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    # nvcc picks each input's role by its extension: objects end in .o
+    objs = [path.with_name(f"{Path(src).stem}.{os.getpid()}.o")
+            for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(CSRC / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src, proc.returncode, log) for src, proc, log
+                  in zip(SOURCES, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src} ({rc}):\n{log}" for src, rc, log in failed))
+        tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+        link = subprocess.run(
+            [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    (path.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}{link.stderr}")
+    (path.parent / "ptxas.log").write_text("".join(logs))
     os.replace(tmp, path)
     return path, seconds
 

@@ -1,11 +1,13 @@
-"""Command-line entry point of the port: ``--get_reference_af [--loo]``.
+"""Command-line entry point of the port: ``--get_reference_af [--loo]``,
+``--get_reference_z_score`` and ``--get_assignment_z_score``.
 
 Takes the reference's flags (the argparse ``parser`` of
 ``wgsassign_tpu.cli``) and writes the same files through
 ``wgsassign_tpu.io.writers``: ``.args``, ``.pop_af.npy``,
 ``.pop_names.txt``, ``.pop_like_LOO[_downsampled].tsv`` and, with
-``--partition_sites``, the partition ``.tsv.gz``.  Analyses not ported yet
-raise ``NotImplementedError`` naming the flag; none is ignored.
+``--partition_sites``, the partition ``.tsv.gz``; ``.reference_z_ind.txt``
+and ``.z_ind.txt``.  Analyses not ported yet raise ``NotImplementedError``
+naming the flag; none is ignored.
 
 Runs on ``cuda:0`` unless :func:`main` is given another ``device``; without
 CUDA it raises.  ``device="cpu"`` (a Python argument, not a flag) runs the
@@ -24,8 +26,6 @@ from wgsassign_tpu.version import __version__
 _NOT_PORTED = {
     "get_pop_like": "--get_pop_like (ROADMAP item 8)",
     "ne_obs": "--ne_obs (ROADMAP item 9)",
-    "get_assignment_z_score": "--get_assignment_z_score (ROADMAP item 10)",
-    "get_reference_z_score": "--get_reference_z_score (ROADMAP item 10)",
     "get_em_mix": "--get_em_mix (ROADMAP item 11)",
     "get_mcmc_mix": "--get_mcmc_mix (ROADMAP item 11)",
     "stream_ingest": "--stream_ingest (ROADMAP item 12)",
@@ -87,8 +87,8 @@ def main(argv=None, device=None):
 
 def _dispatch(args, runtime, timer, writers):
     from wgsassign_tpu.io.beagle import filter_sites_to_common, read_beagle
-    from wgsassign_tpu.io.ids import read_ids
     from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.parallel.runtime import synchronize
 
     beagle = None
     cohort = None
@@ -126,10 +126,17 @@ def _dispatch(args, runtime, timer, writers):
         with timer.phase("h2d"):
             cohort = to_device(beagle, runtime,
                                site_multiple=args.partition_sites)
-            _sync(runtime)
+            synchronize(runtime.device)
 
-    if not args.get_reference_af:
-        return
+    if args.get_reference_af:
+        _reference_af(args, beagle, cohort, downsampled, timer, writers)
+    if args.get_reference_z_score or args.get_assignment_z_score:
+        _z_scores(args, beagle, cohort, timer, writers)
+
+
+def _reference_af(args, beagle, cohort, downsampled, timer, writers):
+    """``--get_reference_af``, then ``--loo`` when asked."""
+    from wgsassign_tpu.io.ids import read_ids
     from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
 
     print("Parsing reference population ID file.")
@@ -211,12 +218,74 @@ def _dispatch(args, runtime, timer, writers):
     print(f"Column order of populations is: {res.pops}")
 
 
-def _sync(runtime) -> None:
-    """Wait for the device, so a phase's wall time includes its work."""
-    if runtime.device.type == "cuda":
-        import torch
+def _z_scores(args, beagle, cohort, timer, writers):
+    """``--get_reference_z_score`` and/or ``--get_assignment_z_score``."""
+    import numpy as np
 
-        torch.cuda.synchronize(runtime.device)
+    from wgsassign_tpu.io.ad import read_allele_depths
+    from wgsassign_tpu.io.ids import read_ids, read_pop_names
+
+    if beagle is None:
+        raise ValueError("z-scores need the --beagle file")
+    print("Parsing population ID file.")
+    if not os.path.isfile(args.pop_af_IDs or ""):
+        raise FileNotFoundError("Population ID file does not exist!!")
+    popmap = read_ids(args.pop_af_IDs)
+    print("Parsing individual allele depths file.")
+    if not os.path.isfile(args.ind_ad_file or ""):
+        raise FileNotFoundError("Individual allele depths file does not exist!")
+    with timer.phase("parse_ad"):
+        ad = read_allele_depths(args.ind_ad_file, n_sites=cohort.m_real,
+                                n_inds=beagle.n_inds)
+    if not os.path.isfile(args.pop_names or ""):
+        raise FileNotFoundError("Population names file does not exist!!")
+    pops = read_pop_names(args.pop_names)
+    n = beagle.n_inds
+    if n != popmap.n_inds:
+        raise ValueError(
+            "Number of individuals in beagle and reference ID file do not match!")
+    threshold = args.allele_count_threshold or 0
+    if threshold < 0:
+        raise ValueError(
+            "Allele count threshold needs to be greater than/equal to 0!")
+    ind_start = args.ind_start or 0
+    ind_end = args.ind_end if args.ind_end is not None else n
+    if not (0 <= ind_start < n and 0 < ind_end <= n and ind_start < ind_end):
+        raise ValueError("Individual index range out of bounds!")
+
+    if args.get_reference_z_score:
+        from wgsassign_tpu_torch.models.zscore import reference_z_scores
+
+        with timer.phase("zscore"):
+            res = reference_z_scores(
+                beagle, ad, popmap, ind_start, ind_end, threshold,
+                args.single_read_threshold, args.maf_iter, args.maf_tole,
+                cohort=cohort, verbose=True,
+                error_rate=args.zscore_error_rate, timer=timer,
+            )
+        print(f"Reference z-score EM: {res.structure} (kept fraction "
+              f"{res.fill:.4f}), iterations {res.em_iters.min()}.."
+              f"{res.em_iters.max()}")
+        writers.write_z_scores(args.out, res.z, reference_mode=True)
+        print(f"Saved {len(res.z)} individual z-scores as {args.out}"
+              ".reference_z_ind.txt (text)")
+
+    if args.get_assignment_z_score:
+        from wgsassign_tpu_torch.models.zscore import assignment_z_scores
+
+        if not args.pop_af_file:
+            raise ValueError(
+                "--get_assignment_z_score requires --pop_af_file")
+        af = np.load(args.pop_af_file)
+        with timer.phase("zscore"):
+            res = assignment_z_scores(
+                beagle, ad, popmap.pop_labels, af, pops, ind_start, ind_end,
+                threshold, args.single_read_threshold, cohort=cohort,
+                verbose=True, error_rate=args.zscore_error_rate, timer=timer,
+            )
+        writers.write_z_scores(args.out, res.z, reference_mode=False)
+        print(f"Saved {len(res.z)} individual z-scores as {args.out}"
+              ".z_ind.txt (text)")
 
 
 def _print_preview(name, items):

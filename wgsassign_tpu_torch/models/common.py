@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from wgsassign_tpu_torch.parallel.runtime import (
+    PAD_AF,
     PAD_G0,
     PAD_G1,
     Runtime,
@@ -68,3 +69,11 @@ def from_jax_arrays(*arrays, device) -> tuple:
             a = a.astype(np.float32, copy=False)
         out.append(torch.from_numpy(a).to(device))
     return tuple(out)
+
+
+def pad_af_to(af: np.ndarray, m_pad: int) -> np.ndarray:
+    """Pad an ``[M, K]`` AF panel's site axis up to ``m_pad`` with 0.5."""
+    m = af.shape[0]
+    if m == m_pad:
+        return af
+    return np.pad(af, [(0, m_pad - m), (0, 0)], constant_values=PAD_AF)

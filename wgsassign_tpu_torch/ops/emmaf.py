@@ -132,6 +132,86 @@ def em_maf_loo_group(g0p, g1p, site_weight, m_real, max_iter: int, tol):
     return _iterate(update, f0, npop, diff, max_iter, tol, g0p.device)
 
 
+def _subset_rmse(site_weight, m_real, device):
+    """Per-problem RMSE of an update over its own kept sites:
+    ``sqrt(sum_s(d^2 * sw[b, s]) / m_real[b])``."""
+    m_real = torch.as_tensor(m_real, dtype=_F32, device=device)
+
+    def diff(fn, fo):
+        d = fn - fo
+        return torch.sqrt(torch.sum(d * d * site_weight, dim=1) / m_real)
+
+    return diff
+
+
+def em_maf_sites_batch(g0p, g1p, member_mask, site_weight, m_real,
+                       max_iter: int, tol):
+    """``B`` independent one-population MAF EMs over per-problem site
+    subsets (the z-score reference mode's gathered form).
+
+    Args:
+      g0p, g1p: float32 ``[B, P, S]`` member GLs at each problem's kept
+        sites (padded site slots carry a valid GL pattern).
+      member_mask: float32 ``[B, P]``, 1 where the member takes part.
+      site_weight: float32 ``[B, S]``, 1 for real kept sites.
+      m_real: float32 ``[B]`` per-problem real-site counts (>= 1).
+
+    Returns ``(f [B, S], iters [B] int32, converged [B] bool)``.  Members
+    are summed in ascending order, one ``[B, S]`` weight at a time.
+    """
+    b, p, s = g0p.shape
+    inv_counts = 1.0 / torch.clamp(torch.sum(member_mask, dim=1), min=1.0)
+
+    def update(f, active):
+        acc = torch.zeros_like(f)
+        for i in range(p):
+            acc += em_weights(g0p[:, i], g1p[:, i], f) * member_mask[:, i, None]
+        f_upd = torch.clamp(acc * inv_counts[:, None], _EM_EPS, 1.0 - _EM_EPS)
+        return torch.where(active[:, None], f_upd, f)
+
+    f0 = torch.full((b, s), 0.25, dtype=_F32, device=g0p.device)
+    return _iterate(update, f0, b,
+                    _subset_rmse(site_weight, m_real, g0p.device),
+                    max_iter, tol, g0p.device)
+
+
+def em_maf_loo_subset(g0p, g1p, leave_out, site_weight, m_real,
+                      max_iter: int, tol):
+    """``B`` leave-one-out MAF EMs of one population over the full site
+    axis (the z-score reference mode's loo-structured form).
+
+    The EM is independent per site, so running problem ``b`` over all
+    sites, with its kept-site mask only in the convergence RMSE, gives the
+    same trajectory at its kept sites as the gathered form.
+
+    Args:
+      g0p, g1p: float32 ``[n_p, M]`` the population's member GLs.
+      leave_out: integer ``[B]`` member row each problem leaves out.
+      site_weight: float32 ``[B, M]`` per-problem kept-site mask.
+      m_real: float32 ``[B]`` per-problem kept-site counts (>= 1).
+
+    Returns ``(f [B, M], iters [B] int32, converged [B] bool)``.
+    """
+    npop, m = g0p.shape
+    leave_out = torch.as_tensor(leave_out, device=g0p.device).long()
+    b = leave_out.shape[0]
+    keep = (torch.arange(npop, device=g0p.device)[None, :]
+            != leave_out[:, None]).to(_F32)  # [B, n_p]
+    inv = 1.0 / (npop - 1.0)
+
+    def update(f, active):
+        acc = torch.zeros_like(f)
+        for i in range(npop):
+            acc += em_weights(g0p[i], g1p[i], f) * keep[:, i, None]
+        f_upd = torch.clamp(acc * inv, _EM_EPS, 1.0 - _EM_EPS)
+        return torch.where(active[:, None], f_upd, f)
+
+    f0 = torch.full((b, m), 0.25, dtype=_F32, device=g0p.device)
+    return _iterate(update, f0, b,
+                    _subset_rmse(site_weight, m_real, g0p.device),
+                    max_iter, tol, g0p.device)
+
+
 def clamp_af(f, n_pop):
     """Clamp allele frequencies to ``[1/(2(n+1)), 1 - 1/(2(n+1))]``;
     ``n_pop`` is a scalar or a per-column ``[K]`` vector of sample sizes."""

@@ -1,8 +1,10 @@
-"""Chunked fused EMs (counterpart of ``em_maf_pops_fused`` and
-``em_maf_loo_group_fused`` in ``wgsassign_tpu/ops/pallas_emmaf.py``).
+"""Chunked fused EMs (counterparts of ``em_maf_pops_fused``,
+``em_maf_loo_group_fused``, ``em_maf_loo_subset_fused`` and
+``em_maf_sites_batch_fused`` in ``wgsassign_tpu/ops/pallas_emmaf.py``).
 
 Each chunk runs T EM iterations in one kernel launch (:func:`em_chunk`,
-:func:`loo_chunk`), which also returns the per-iteration squared-update
+:func:`loo_chunk`, :func:`zloo_chunk`, :func:`sites_chunk`), which also
+returns the per-iteration squared-update
 sums ``sq[T, P]``.  The host rebuilds each problem's exact RMSE sequence
 from ``sq``; when a problem converges inside a chunk, the chunk is replayed
 from its snapshot with exact per-problem limits, so every problem stops at
@@ -24,6 +26,8 @@ import torch
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk
 from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
+from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk
+from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk
 
 _F32 = torch.float32
 
@@ -215,5 +219,89 @@ def em_maf_loo_group_fused(
     _use_jax_layout(checkpoint, -(-n_p // 8) * 8, m_real)
     ft, iters, active = _drive_chunks(
         run_chunk, put_ft, ft, n_p, max_iter, tol, m_real, chunk, checkpoint
+    )
+    return ft, iters, ~active
+
+
+def em_maf_loo_subset_fused(
+    g0p,
+    g1p,
+    leave_out,
+    site_weight,
+    m_real,
+    max_iter: int,
+    tol: float,
+    chunk: int = 8,
+    fast_math: bool = True,
+    chunk_op=zloo_chunk,
+):
+    """B leave-one-out EMs of one population over the full site axis, in
+    chunks of ``chunk`` fused iterations (the z-score reference mode's
+    loo-structured form).
+
+    Same contract as the plain :func:`wgsassign_tpu_torch.ops.emmaf.
+    em_maf_loo_subset`: ``g0p``/``g1p`` are the population's ``[n_p, M]``
+    member panels, ``leave_out`` the ``[B]`` member rows left out,
+    ``site_weight`` the ``[B, M]`` kept-site masks on the device and
+    ``m_real`` the ``[B]`` kept-site counts; returns ``(f [B, M] on the
+    device, iters [B] int32, converged [B] bool)``.  ``fast_math`` and
+    ``chunk_op`` as in :func:`em_maf_pops_fused`.
+    """
+    n_p, m = g0p.shape
+    device = g0p.device
+    leave = torch.as_tensor(np.asarray(leave_out, np.int32), device=device)
+    b = leave.shape[0]
+
+    def run_chunk(ft_in, limits_vec, T):
+        limits = torch.from_numpy(limits_vec).to(device)
+        return chunk_op(g0p, g1p, ft_in, site_weight, leave, limits, n_p, T,
+                        fast_math)
+
+    ft = torch.full((b, m), 0.25, dtype=_F32, device=device)
+    ft, iters, active = _drive_chunks(
+        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None
+    )
+    return ft, iters, ~active
+
+
+def em_maf_sites_batch_fused(
+    g0p,
+    g1p,
+    member_mask,
+    site_weight,
+    m_real,
+    max_iter: int,
+    tol: float,
+    chunk: int = 8,
+    fast_math: bool = True,
+    chunk_op=sites_chunk,
+):
+    """B independent one-population EMs over gathered ``[B, P, S]`` member
+    panels, in chunks of ``chunk`` fused iterations (the z-score reference
+    mode's gathered form).
+
+    Same contract as the plain :func:`wgsassign_tpu_torch.ops.emmaf.
+    em_maf_sites_batch`: ``member_mask`` ``[B, P]``, ``site_weight``
+    ``[B, S]``, ``m_real`` the ``[B]`` real-site counts; returns ``(f [B,
+    S] on the device, iters [B] int32, converged [B] bool)``.
+    ``fast_math`` and ``chunk_op`` as in :func:`em_maf_pops_fused`.
+    """
+    b, _p, s = g0p.shape
+    device = g0p.device
+    mask_h = np.asarray(member_mask, np.float32)
+    # 1 / count in float32, as the JAX package's driver computes it
+    inv_h = (1.0 / np.maximum(mask_h.sum(axis=1), 1.0)).astype(np.float32)
+    mask = torch.from_numpy(mask_h).to(device)
+    inv_counts = torch.from_numpy(inv_h).to(device)
+    sw = torch.as_tensor(site_weight, dtype=_F32, device=device)
+
+    def run_chunk(ft_in, limits_vec, T):
+        limits = torch.from_numpy(limits_vec).to(device)
+        return chunk_op(g0p, g1p, ft_in, mask, sw, limits, inv_counts, T,
+                        fast_math)
+
+    ft = torch.full((b, s), 0.25, dtype=_F32, device=device)
+    ft, iters, active = _drive_chunks(
+        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None
     )
     return ft, iters, ~active

@@ -72,6 +72,13 @@ def make_runtime(device="cuda:0", fast_math: bool = True) -> Runtime:
     return Runtime(device=device, fast_math=fast_math)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``, so a timed phase includes its work (nothing to
+    wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def pad_sites(arr: np.ndarray, multiple: int, pad_value: float) -> np.ndarray:
     """Pad dim 0 up to a multiple; returns the padded array."""
     m = arr.shape[0]
