@@ -24,7 +24,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    --single_read_threshold`` (the gathered EM, ``sites_chunk``);
 7. parity on the card at 100,000 sites: reference z-scores in both EM
    structures from the kernels against the twins, and assignment z-scores
-   on the card against the same run on the CPU.
+   on the card against the same run on the CPU;
+8. the other analyses on phase 4's file and AF outputs: (a)
+   ``--stream_ingest 0 --get_reference_af --ne_obs --loo``, whose AF and LOO
+   files must equal phase 4's byte for byte, with the same kernel launches;
+   (b) ``--get_pop_like --profile``, whose trace must hold CUDA kernels;
+   (c) the EM and MCMC mixture on (b)'s log-likelihoods;
+9. parity on the card at 100,000 sites: assignment log-likelihoods and Ne
+   on the card against the CPU, streamed ingest against the in-memory
+   cohort (bit for bit), and ``--debug_checks`` raising on a malformed GL
+   triple.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4, 6a or 6b), its largest difference from the twin and both
@@ -53,6 +62,11 @@ AF_ATOL, LL_RTOL, LL_ATOL = 1e-5, 1e-5, 2e-3
 # z-scores: float32 sums over up to ~1M kept sites in another order (the JAX
 # goldens hold z to 2e-3, tests/test_zscore.py)
 Z_ATOL = 2e-3
+# Ne against the CPU: float32 member sums in another order
+# (tests/test_torch_ne.py)
+NE_RTOL, NE_ATOL = 1e-5, 1e-4
+# mixture proportions: each row sums to 1 (float32 text in the files)
+MIX_ATOL = 1e-5
 
 PALLAS = "wgsassign_tpu/ops/pallas_emmaf.py"
 # kernel -> (source, TPU kernel it replaces, phase whose path launches it)
@@ -348,6 +362,7 @@ def main_path(results):
     phase("4b main-path", t0, wall_s=f"{wall:.3f}",
           launches=json.dumps(counts, sort_keys=True),
           phases_s=json.dumps(phases, sort_keys=True))
+    return counts, dict(timer.totals)
 
 
 def parity(dev):
@@ -516,6 +531,197 @@ def zscore_parity(dev):
         k.replace("-", "_"): v for k, v in info.items()})
 
 
+def read_mixture(path, rows):
+    import numpy as np
+
+    mix = np.loadtxt(path, dtype=str, ndmin=2)
+    pi = mix[:, 1:].astype(np.float64)
+    if mix.shape[0] != rows or not np.isfinite(pi).all():
+        raise AssertionError(f"{path}: shape {mix.shape} or non-finite")
+    err = float(np.abs(pi.sum(axis=1) - 1.0).max())
+    if err > MIX_ATOL:
+        raise AssertionError(f"{path}: a row sums to 1 +- {err}")
+    return err
+
+
+def same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def analyses_path(main_counts, main_totals):
+    """Phase 8: streamed ingest with Ne and LOO, --get_pop_like under the
+    profiler, and the mixture, through the CLI on phase 4's file."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.cli import main as cli_main
+
+    beagle, ids = synth_file(M_MAIN, N_MAIN, K_MAIN, SEED)
+    main = os.path.join(WORK, "main")
+
+    out = os.path.join(WORK, "s8a")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.launches.clear()
+    timer = cli_main(["--beagle", beagle, "--pop_af_IDs", ids,
+                      "--stream_ingest", "0", "--get_reference_af",
+                      "--ne_obs", "--loo", "-o", out])
+    counts = dict(_kernels.launches)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for name in paths_kernels("4"):
+        if not counts.get(name) or counts.get(name) != main_counts.get(name):
+            raise AssertionError(f"streamed run launched {name} "
+                                 f"{counts.get(name, 0)} times, phase 4 "
+                                 f"{main_counts.get(name, 0)}")
+    for suffix in (".pop_af.npy", ".pop_names.txt", ".pop_like_LOO.tsv"):
+        if not same_bytes(out + suffix, main + suffix):
+            raise AssertionError(f"streamed {suffix} differs from phase 4's")
+    for suffix in (".fisher_obs.npy", ".ne_obs.npy"):
+        a = np.load(out + suffix)
+        if a.shape != (M_MAIN, K_MAIN) or not np.isfinite(a).all():
+            raise AssertionError(f"{suffix}: shape {a.shape} or non-finite")
+    ne_txt = np.loadtxt(out + ".ne_obs.txt", dtype=str, ndmin=2)
+    if (ne_txt.shape != (2, K_MAIN)
+            or not np.isfinite(ne_txt[1].astype(float)).all()):
+        raise AssertionError(f".ne_obs.txt: {ne_txt}")
+    ne_ind = np.loadtxt(out + ".ne_ind.txt", ndmin=1)
+    if ne_ind.shape != (N_MAIN,) or not np.isfinite(ne_ind).all():
+        raise AssertionError(f".ne_ind.txt: shape {ne_ind.shape}")
+    phases = {k: round(v, 3) for k, v in timer.totals.items()}
+    phase("8a streamed-ne-loo", t0, wall_s=f"{wall:.3f}",
+          parse_upload_s=f"{timer.totals['parse']:.3f}",
+          phase4_parse_plus_h2d_s=(
+              f"{main_totals['parse'] + main_totals['h2d']:.3f}"),
+          peak_mem_gb=f"{peak / 1e9:.2f}",
+          launches=json.dumps(counts, sort_keys=True),
+          phases_s=json.dumps(phases, sort_keys=True),
+          same_bytes_as_4="pop_af,pop_names,pop_like_LOO")
+
+    out = os.path.join(WORK, "s8b")
+    trace_dir = os.path.join(WORK, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    timer = cli_main(["--beagle", beagle, "--get_pop_like", "--pop_af_file",
+                      main + ".pop_af.npy", "--profile", trace_dir,
+                      "-o", out])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ll = np.loadtxt(out + ".pop_like.txt", ndmin=2)
+    if ll.shape != (N_MAIN, K_MAIN) or not np.isfinite(ll).all():
+        raise AssertionError(f".pop_like.txt: shape {ll.shape} or non-finite")
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profiler traces: {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_events = [ev for ev in events if ev.get("cat") == "kernel"]
+    if not kernel_events:
+        raise AssertionError("the profiler trace holds no CUDA kernel")
+    kernel_us = sum(float(ev.get("dur", 0.0)) for ev in kernel_events)
+    phases = {k: round(v, 3) for k, v in timer.totals.items()}
+    phase("8b pop-like-profile", t0, wall_s=f"{wall:.3f}",
+          peak_mem_gb=f"{peak / 1e9:.2f}", trace_events=len(events),
+          cuda_kernel_events=len(kernel_events),
+          cuda_kernel_ms=f"{kernel_us / 1e3:.3f}",
+          phases_s=json.dumps(phases, sort_keys=True))
+
+    out8c = os.path.join(WORK, "s8c")
+    t0 = time.perf_counter()
+    timer = cli_main(["--pop_like", out + ".pop_like.txt", "--pop_like_IDs",
+                      ids, "--get_em_mix", "--get_mcmc_mix", "--mcmc_seed",
+                      "0", "--stable_mix", "-o", out8c])
+    errs = [read_mixture(out8c + suffix, K_MAIN)
+            for suffix in (".em_mix.txt", ".mcmc_mix.txt")]
+    phase("8c mixture", t0, mixture_s=f"{timer.totals['mixture']:.3f}",
+          row_sum_err=max(errs))
+
+
+def analyses_parity(dev):
+    """Phase 9: the torch-op analyses on the card against the CPU, streamed
+    ingest against the in-memory cohort, and --debug_checks, at 100,000
+    sites."""
+    import numpy as np
+    import torch
+
+    from wgsassign_tpu.io.beagle import BeagleData, read_beagle
+    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_tpu.io.synth import synth_beagle_file, synth_cohort
+    from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
+    from wgsassign_tpu_torch.models.common import stream_to_device, to_device
+    from wgsassign_tpu_torch.models.ne import effective_sample_sizes
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    t0 = time.perf_counter()
+    gl, labels, _ = synth_cohort(M_PARITY, N_MAIN, n_pops=K_MAIN,
+                                 seed=SEED + 1)
+    names = [f"Ind{i}" for i in range(N_MAIN)]
+    beagle = BeagleData(gl, names, [f"s{i}" for i in range(M_PARITY)])
+    popmap = population_map(names, labels)
+    af = np.random.default_rng(SEED).uniform(
+        0.05, 0.95, (M_PARITY, K_MAIN)).astype(np.float32)
+    gpu, cpu = make_runtime(dev), make_runtime("cpu")
+    info = {}
+    for p, f64 in ((1, True), (1, False), (4, True)):
+        kw = dict(num_partitions=p, f64_sums=f64)
+        got = assignment_loglikelihoods(beagle, af, runtime=gpu, **kw)
+        want = assignment_loglikelihoods(beagle, af, runtime=cpu, **kw)
+        got, want = (got, want) if p > 1 else ((got,), (want,))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=LL_RTOL, atol=LL_ATOL)
+        if not np.array_equal(got[0].argmax(1), want[0].argmax(1)):
+            raise AssertionError(f"pop_like P={p} f64={f64}: argmax differs")
+        info[f"pop_like_P{p}_{'f64' if f64 else 'f32'}_max_abs_err"] = float(
+            max(np.abs(g - w).max() for g, w in zip(got, want)))
+    ne_g = effective_sample_sizes(beagle, af, popmap, runtime=gpu)
+    ne_c = effective_sample_sizes(beagle, af, popmap, runtime=cpu)
+    for name in ("f_obs", "ne_obs", "ne_ind"):
+        g, w = getattr(ne_g, name), getattr(ne_c, name)
+        np.testing.assert_allclose(g, w, rtol=NE_RTOL, atol=NE_ATOL)
+        info[f"ne_{name}_max_abs_err"] = float(np.abs(g - w).max())
+
+    path = os.path.join(WORK, f"synth_M{M_PARITY}_stream.beagle.gz")
+    if not os.path.exists(path):
+        synth_beagle_file(path + ".tmp", M_PARITY, N_MAIN, n_pops=K_MAIN,
+                          seed=SEED + 2)
+        os.replace(path + ".tmp", path)
+    full = read_beagle(path)
+    keep = np.arange(M_PARITY) % 7 != 3
+    rows = np.flatnonzero(keep)
+    kept = BeagleData(full.gl[rows], full.sample_names,
+                      [full.site_names[r] for r in rows])
+    for label, mask, ref in (("all", None, full), ("masked", keep, kept)):
+        got, _, _ = stream_to_device(path, gpu, site_multiple=4,
+                                     block_rows=4096, keep_mask=mask)
+        want = to_device(ref, gpu, site_multiple=4)
+        same = all(torch.equal(getattr(got, a), getattr(want, a))
+                   for a in ("g0", "g1", "site_weight"))
+        if not same or got.m_real != want.m_real:
+            raise AssertionError(f"streamed cohort ({label}) differs from "
+                                 "the in-memory one")
+    info["stream_bit_identical"] = "all,masked"
+
+    bad_gl = gl.copy()
+    bad_gl[3, 1] = (0.5, 0.9)  # g2 = -0.4
+    bad_af = af.copy()
+    bad_af[3] = 0.95  # likelihood 0.5(1-a)^2 + 1.8a(1-a) - 0.4a^2 < 0
+    bad = BeagleData(bad_gl, names, beagle.site_names)
+    try:
+        assignment_loglikelihoods(
+            bad, bad_af, runtime=make_runtime(dev, debug_checks=True))
+    except ValueError as e:
+        info["debug_checks"] = repr(str(e).split(" --")[0])
+    else:
+        raise AssertionError("--debug_checks let a malformed triple through")
+    phase("9 analyses-parity", t0, M=M_PARITY, **info)
+
+
 def main():
     import torch
 
@@ -554,13 +760,17 @@ def main():
         for n, r in results.items()})
     torch.cuda.empty_cache()
 
-    main_path(results)
+    main_counts, main_totals = main_path(results)
     torch.cuda.empty_cache()
     parity(dev)
     torch.cuda.empty_cache()
     zscore_path(results)
     torch.cuda.empty_cache()
     zscore_parity(dev)
+    torch.cuda.empty_cache()
+    analyses_path(main_counts, main_totals)
+    torch.cuda.empty_cache()
+    analyses_parity(dev)
 
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",

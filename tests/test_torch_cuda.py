@@ -1,4 +1,5 @@
-"""CUDA kernels against their plain PyTorch twins, on the GPU.
+"""CUDA kernels against their plain PyTorch twins, on the GPU, and the
+torch-op analyses on the GPU against the same calls on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips without them (the
 kernels have no CPU mode).  This file imports neither jax nor the JAX
@@ -9,7 +10,10 @@ package's device code, so it also runs where jax is not installed:
 Tolerances: the kernels round op for op like the twins (-fmad=false, IEEE
 division, members summed in the same order), so ``ft`` agrees to atol 1e-6
 and ``sq`` -- summed over sites in another order (warp shuffles, blocks) --
-to rtol 1e-5.
+to rtol 1e-5.  The analyses without a kernel (assignment log-likelihoods,
+Ne) are held to the CPU at the tolerances of tests/test_torch_assign.py and
+tests/test_torch_ne.py; a streamed cohort is bit-identical to an in-memory
+one on the card too.
 """
 
 import numpy as np
@@ -224,3 +228,82 @@ def test_zscore_fused_ems_kernel_vs_twin(cuda):
                                             chunk_op=sites_chunk_twin)
     np.testing.assert_array_equal(it_k, it_t)
     torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-5)
+
+
+def _beagle(m, n, seed):
+    from wgsassign_tpu.io.beagle import BeagleData
+
+    raw = np.random.default_rng(seed).dirichlet(np.ones(3), size=(m, n))
+    gl = np.ascontiguousarray(raw[:, :, :2].astype(np.float32))
+    return BeagleData(gl, [f"Ind{i}" for i in range(n)],
+                      [f"s{j}" for j in range(m)])
+
+
+@pytest.mark.parametrize("f64_sums", [True, False])
+@pytest.mark.parametrize("p", [1, 4])
+def test_assignment_loglikelihoods_card_vs_cpu(cuda, p, f64_sums):
+    from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle = _beagle(4000, 40, 14)
+    af = np.random.default_rng(15).uniform(
+        0.02, 0.98, size=(4000, 3)).astype(np.float32)
+    kw = dict(num_partitions=p, f64_sums=f64_sums)
+    got = assignment_loglikelihoods(beagle, af, runtime=make_runtime(cuda),
+                                    **kw)
+    want = assignment_loglikelihoods(beagle, af,
+                                     runtime=make_runtime("cpu"), **kw)
+    for g, w in zip(*((got, want) if p > 1 else ((got,), (want,)))):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=2e-3)
+    ll_g, ll_w = (got[0], want[0]) if p > 1 else (got, want)
+    np.testing.assert_array_equal(ll_g.argmax(1), ll_w.argmax(1))
+
+
+def test_effective_sample_sizes_card_vs_cpu(cuda):
+    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_tpu_torch.models.ne import effective_sample_sizes
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle = _beagle(4000, 40, 16)
+    popmap = population_map(beagle.sample_names,
+                            [f"pop{i % 3}" for i in range(40)])
+    af = np.random.default_rng(17).uniform(
+        0.05, 0.95, size=(4000, 3)).astype(np.float32)
+    got = effective_sample_sizes(beagle, af, popmap,
+                                 runtime=make_runtime(cuda), site_block=999)
+    want = effective_sample_sizes(beagle, af, popmap,
+                                  runtime=make_runtime("cpu"))
+    for name in ("f_obs", "ne_obs", "ne_ind"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"])
+@pytest.mark.parametrize("keep", [False, True])
+def test_stream_to_device_card_bitmatches(cuda, tmp_path, monkeypatch, keep,
+                                         overlap):
+    """Pinned staging buffers, side-stream copies and on-card plane splits
+    give the in-memory cohort bit for bit."""
+    from wgsassign_tpu.io.beagle import BeagleData, read_beagle
+    from wgsassign_tpu.io.synth import write_beagle
+    from wgsassign_tpu_torch.models.common import stream_to_device, to_device
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    monkeypatch.setenv("WGSA_STREAM_OVERLAP", overlap)
+    path = str(tmp_path / "c.beagle.gz")
+    write_beagle(path, _beagle(3001, 24, 18).gl)
+    full = read_beagle(path)
+    keep_mask = None
+    if keep:
+        keep_mask = np.arange(3001) % 3 != 1
+        rows = np.flatnonzero(keep_mask)
+        full = BeagleData(full.gl[rows], full.sample_names,
+                          [full.site_names[r] for r in rows])
+    rt = make_runtime(cuda)
+    got, _, _ = stream_to_device(path, rt, site_multiple=4, block_rows=256,
+                                 keep_mask=keep_mask)
+    want = to_device(full, rt, site_multiple=4)
+    torch.cuda.synchronize()
+    assert got.m_real == want.m_real
+    for name in ("g0", "g1", "site_weight"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

@@ -186,14 +186,29 @@ def test_loo_restart_files_resume(cohort_files, tmp_path):
 
 
 def test_torch_cli_never_loads_jax(cohort_files, tmp_path):
-    """A subprocess, because this pytest process has imported jax."""
+    """A subprocess, because this pytest process has imported jax.  Every
+    module of the port is imported and every analysis runs."""
+    sub = str(tmp_path / "sub")
+    modules = ", ".join(
+        f"wgsassign_tpu_torch.{m}" for m in (
+            "models.assign", "models.common", "models.loo", "models.mixture",
+            "models.ne", "models.reference_af", "models.zscore",
+            "ops.fisher", "ops.loglik", "obs.profiling", "parallel.runtime"))
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
+        f"import {modules}\n"
         "from wgsassign_tpu_torch.cli import main\n"
         f"main(['--beagle', {cohort_files['beagle']!r}, '--pop_af_IDs', "
-        f"{cohort_files['ids']!r}, '--get_reference_af', '--loo', '-o', "
-        f"{str(tmp_path / 'sub')!r}], device='cpu')\n"
+        f"{cohort_files['ids']!r}, '--get_reference_af', '--ne_obs', "
+        f"'--loo', '--stream_ingest', '0', '--debug_checks', '--profile', "
+        f"{str(tmp_path / 'trace')!r}, '-o', {sub!r}], device='cpu')\n"
+        f"main(['--beagle', {cohort_files['beagle']!r}, '--get_pop_like', "
+        f"'--pop_af_file', {sub + '.pop_af.npy'!r}, '-o', {sub!r}], "
+        "device='cpu')\n"
+        f"main(['--pop_like', {sub + '.pop_like.txt'!r}, '--pop_like_IDs', "
+        f"{cohort_files['ids']!r}, '--get_em_mix', '--get_mcmc_mix', "
+        f"'-o', {sub!r}], device='cpu')\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('NO_JAX_OK')\n"
     )
@@ -204,17 +219,21 @@ def test_torch_cli_never_loads_jax(cohort_files, tmp_path):
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "NO_JAX_OK" in proc.stdout
-    assert os.path.exists(str(tmp_path / "sub") + ".pop_like_LOO.tsv")
+    for suffix in (".pop_like_LOO.tsv", ".ne_ind.txt", ".pop_like.txt",
+                   ".em_mix.txt", ".mcmc_mix.txt"):
+        assert os.path.exists(sub + suffix), suffix
 
 
 @pytest.mark.parametrize("flags", [
-    # the z-score flags are ported: an unported flag beside one still raises
-    ["--get_pop_like"], ["--ne_obs"],
-    ["--stream_ingest", "0", "--get_assignment_z_score"],
-    ["--devices", "1", "--get_reference_z_score"], ["--get_em_mix"],
-    ["--get_mcmc_mix"],
-    ["--stream_ingest", "0"], ["--devices", "1"], ["--use_pallas"],
-    ["--no_pallas"], ["--debug_checks"], ["--profile", "trace"],
+    # every flag but these three is ported: beside a ported one, an
+    # unported flag still raises
+    ["--devices", "1", "--get_pop_like"], ["--devices", "1", "--ne_obs"],
+    ["--devices", "1", "--stream_ingest", "0", "--get_assignment_z_score"],
+    ["--devices", "1", "--get_reference_z_score"],
+    ["--use_pallas", "--get_em_mix"], ["--no_pallas", "--get_mcmc_mix"],
+    ["--devices", "1", "--stream_ingest", "0"], ["--devices", "1"],
+    ["--use_pallas"], ["--no_pallas"], ["--use_pallas", "--debug_checks"],
+    ["--no_pallas", "--profile", "trace"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match=flags[0]):

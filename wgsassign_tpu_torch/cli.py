@@ -1,13 +1,20 @@
-"""Command-line entry point of the port: ``--get_reference_af [--loo]``,
-``--get_reference_z_score`` and ``--get_assignment_z_score``.
+"""Command-line entry point of the port: every analysis of
+``wgsassign_tpu.cli`` on one process and one GPU.
 
 Takes the reference's flags (the argparse ``parser`` of
-``wgsassign_tpu.cli``) and writes the same files through
-``wgsassign_tpu.io.writers``: ``.args``, ``.pop_af.npy``,
-``.pop_names.txt``, ``.pop_like_LOO[_downsampled].tsv`` and, with
-``--partition_sites``, the partition ``.tsv.gz``; ``.reference_z_ind.txt``
-and ``.z_ind.txt``.  Analyses not ported yet raise ``NotImplementedError``
-naming the flag; none is ignored.
+``wgsassign_tpu.cli``), runs its sections in the same order -- reference AF,
+``--ne_obs``, ``--loo``; ``--get_pop_like``; the z-scores; the mixture --
+and writes the same files through ``wgsassign_tpu.io.writers``: ``.args``,
+``.pop_af.npy``, ``.pop_names.txt``, ``.fisher_obs.npy``, ``.ne_obs.npy``,
+``.ne_obs.txt``, ``.ne_ind.txt``, ``.pop_like_LOO[_downsampled].tsv`` and,
+with ``--partition_sites``, the partition ``.tsv.gz``; ``.pop_like.txt``;
+``.reference_z_ind.txt`` and ``.z_ind.txt``; ``.em_mix.txt`` and
+``.mcmc_mix.txt``.  ``--stream_ingest`` streams the Beagle file to the
+device in site blocks; ``--debug_checks`` sanitises the likelihood inputs
+(there is no counterpart of ``jax_debug_nans``); ``--profile DIR`` writes a
+``torch.profiler`` trace.  ``--devices`` (several GPUs, not ported yet) and
+``--use_pallas``/``--no_pallas`` (no counterpart) raise
+``NotImplementedError``; no flag is ignored.
 
 Runs on ``cuda:0`` unless :func:`main` is given another ``device``; without
 CUDA it raises.  ``device="cpu"`` (a Python argument, not a flag) runs the
@@ -22,20 +29,13 @@ import sys
 from wgsassign_tpu.cli import parser
 from wgsassign_tpu.version import __version__
 
-# flag -> ROADMAP item that ports it (ROADMAP.md, "Modules to port")
+# flag -> why it does not run here (ROADMAP.md, "Modules to port")
 _NOT_PORTED = {
-    "get_pop_like": "--get_pop_like (ROADMAP item 8)",
-    "ne_obs": "--ne_obs (ROADMAP item 9)",
-    "get_em_mix": "--get_em_mix (ROADMAP item 11)",
-    "get_mcmc_mix": "--get_mcmc_mix (ROADMAP item 11)",
-    "stream_ingest": "--stream_ingest (ROADMAP item 12)",
     "devices": "--devices (ROADMAP item 13)",
     "use_pallas": "--use_pallas (no counterpart: the GPU always runs the "
                   "CUDA kernels)",
     "no_pallas": "--no_pallas (no counterpart: the GPU always runs the "
                  "CUDA kernels)",
-    "debug_checks": "--debug_checks (ROADMAP item 14)",
-    "profile": "--profile (ROADMAP item 14)",
 }
 
 
@@ -69,18 +69,21 @@ def main(argv=None, device=None):
     from wgsassign_tpu.io import writers
     from wgsassign_tpu.obs.log import setup_logging
     from wgsassign_tpu.obs.profiling import RunTimer
+    from wgsassign_tpu_torch.obs.profiling import maybe_profile
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
     setup_logging(args.log_level)
     runtime = make_runtime("cuda:0" if device is None else device,
-                           fast_math=not args.no_fast_em)
+                           fast_math=not args.no_fast_em,
+                           debug_checks=args.debug_checks)
     # provenance log (reference WGSassign.py:127-141)
     writers.write_args_file(args.out, args, parser.parse_args([]))
     name = (torch.cuda.get_device_name(runtime.device)
             if runtime.device.type == "cuda" else "the CPU (plain versions)")
     print(f"Device: {runtime.device} ({name}).\n")
     timer = RunTimer()
-    _dispatch(args, runtime, timer, writers)
+    with maybe_profile(args.profile, runtime.device):
+        _dispatch(args, runtime, timer, writers)
     timer.report()
     return timer
 
@@ -93,9 +96,13 @@ def _dispatch(args, runtime, timer, writers):
     beagle = None
     cohort = None
     downsampled = None
+    downsampled_cohort = None
     n_threads = args.threads if args.threads and args.threads > 0 else None
 
-    if args.beagle is not None:
+    if args.beagle is not None and args.stream_ingest is not None:
+        cohort, beagle, downsampled_cohort = _stream_ingest(
+            args, runtime, timer, n_threads)
+    elif args.beagle is not None:
         print("Parsing Beagle file.")
         with timer.phase("parse"):
             beagle = read_beagle(args.beagle, n_threads=n_threads)
@@ -103,7 +110,7 @@ def _dispatch(args, runtime, timer, writers):
         _print_preview("sample_names", beagle.sample_names)
         _print_preview("site_names", beagle.site_names)
 
-    if args.loo_downsampled_beagle is not None:
+    if args.loo_downsampled_beagle is not None and args.stream_ingest is None:
         print("Parsing the optional downsampled Beagle file.")
         with timer.phase("parse"):
             downsampled = read_beagle(
@@ -122,20 +129,81 @@ def _dispatch(args, runtime, timer, writers):
         if beagle.site_names != downsampled.site_names:
             raise ValueError("Site names in full and downsampled Beagle do not match after filtering.")
 
-    if beagle is not None:
+    if beagle is not None and cohort is None:
         with timer.phase("h2d"):
             cohort = to_device(beagle, runtime,
                                site_multiple=args.partition_sites)
             synchronize(runtime.device)
 
     if args.get_reference_af:
-        _reference_af(args, beagle, cohort, downsampled, timer, writers)
+        _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
+                      timer, writers)
+    if args.get_pop_like:
+        _pop_like(args, beagle, cohort, timer, writers)
     if args.get_reference_z_score or args.get_assignment_z_score:
         _z_scores(args, beagle, cohort, timer, writers)
+    if args.get_em_mix or args.get_mcmc_mix:
+        _mixture(args, timer, writers)
 
 
-def _reference_af(args, beagle, cohort, downsampled, timer, writers):
-    """``--get_reference_af``, then ``--loo`` when asked."""
+def _stream_ingest(args, runtime, timer, n_threads):
+    """``--stream_ingest ROWS``: the Beagle file (and the downsampled one)
+    go to the device in site blocks; the GL matrices never exist on the
+    host.  Returns ``(cohort, meta, downsampled_cohort or None)``."""
+    from wgsassign_tpu_torch.models.common import stream_to_device
+    from wgsassign_tpu_torch.parallel.runtime import synchronize
+
+    keep_full = keep_ds = None
+    if args.loo_downsampled_beagle:
+        # the downsampled-LOO site intersection from one hash-scan pass per
+        # file (8 bytes per site on the host), then masked streaming
+        from wgsassign_tpu.io.beagle import (
+            scan_header_samples,
+            scan_site_hashes,
+            site_intersection_masks_hashed,
+        )
+
+        if (scan_header_samples(args.beagle)
+                != scan_header_samples(args.loo_downsampled_beagle)):
+            raise ValueError(
+                "Sample names in downsampled Beagle file do not match original."
+            )
+        print("Scanning site names for the downsampled intersection.")
+        with timer.phase("parse"):
+            keep_full, keep_ds = site_intersection_masks_hashed(
+                scan_site_hashes(args.beagle),
+                scan_site_hashes(args.loo_downsampled_beagle),
+            )
+
+    def stream(path, keep):
+        with timer.phase("parse"):
+            out = stream_to_device(
+                path, runtime, site_multiple=args.partition_sites,
+                block_rows=args.stream_ingest or None, n_threads=n_threads,
+                keep_mask=keep,
+            )
+            synchronize(runtime.device)
+        return out
+
+    print("Streaming Beagle file to device in site blocks.")
+    cohort, meta, _ = stream(args.beagle, keep_full)
+    print(
+        f"Loaded {cohort.m_real} sites and {meta.n_inds} individuals "
+        "(streamed; GL matrix resident on device only)."
+    )
+    _print_preview("sample_names", meta.sample_names)
+    downsampled_cohort = None
+    if args.loo_downsampled_beagle:
+        print("Streaming the downsampled Beagle file.")
+        downsampled_cohort, _, _ = stream(args.loo_downsampled_beagle,
+                                          keep_ds)
+    return cohort, meta, downsampled_cohort
+
+
+def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
+                  timer, writers):
+    """``--get_reference_af``, then ``--ne_obs`` and ``--loo`` when
+    asked."""
     from wgsassign_tpu.io.ids import read_ids
     from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
 
@@ -151,7 +219,7 @@ def _reference_af(args, beagle, cohort, downsampled, timer, writers):
         )
     em_secs = timer.totals["reference_af"]
     total_updates = float(
-        beagle.n_sites * sum(
+        cohort.m_real * sum(
             int(it) * int(sz) for it, sz in zip(res.iters, popmap.pop_sizes)
         )
     )
@@ -168,6 +236,20 @@ def _reference_af(args, beagle, cohort, downsampled, timer, writers):
     writers.write_pop_names(args.out, res.pops)
     print(f"Saved reference population names as {args.out}.pop_names.txt\n")
 
+    if args.ne_obs:
+        from wgsassign_tpu_torch.models.ne import effective_sample_sizes
+
+        print("Estimating Fisher information.")
+        with timer.phase("ne"):
+            ne = effective_sample_sizes(beagle, res.af, popmap, cohort=cohort)
+        writers.write_ne_outputs(args.out, ne.f_obs, ne.ne_obs, res.pops)
+        print(f"Saved observed Fisher information as {args.out}.fisher_obs.npy")
+        print(f"Saved per-locus effective sample sizes as {args.out}.ne_obs.npy")
+        print(f"Saved population effective sample sizes as {args.out}.ne_obs.txt")
+        print("Estimating individual effective sample sizes.")
+        writers.write_ne_ind(args.out, ne.ne_ind)
+        print(f"Saved individual effective sample sizes as {args.out}.ne_ind.txt")
+
     if not args.loo:
         return
     from wgsassign_tpu_torch.models.loo import leave_one_out
@@ -183,6 +265,7 @@ def _reference_af(args, beagle, cohort, downsampled, timer, writers):
             downsampled=downsampled,
             num_partitions=args.partition_sites,
             cohort=cohort,
+            downsampled_cohort=downsampled_cohort,
             compat_af_mutation=not args.loo_clean_af,
             verbose=True,
             f64_sums=not args.f32_sums,
@@ -198,7 +281,9 @@ def _reference_af(args, beagle, cohort, downsampled, timer, writers):
     )
     print(f"LOO EM throughput: {pairwise_updates / max(loo_secs, 1e-9):.3g} "
           "pairwise site-member updates/s")
-    suffix = "_downsampled" if downsampled is not None else ""
+    suffix = ("_downsampled"
+              if downsampled is not None or downsampled_cohort is not None
+              else "")
     outfile = f"{args.out}.pop_like_LOO{suffix}.tsv"
     writers.write_assignment_matrix(
         outfile, loo_res.ll, beagle.sample_names, list(res.pops),
@@ -216,6 +301,29 @@ def _reference_af(args, beagle, cohort, downsampled, timer, writers):
         )
         print(f"Saved partitioned LOO log likelihoods as {partfile}")
     print(f"Column order of populations is: {res.pops}")
+
+
+def _pop_like(args, beagle, cohort, timer, writers):
+    """``--get_pop_like``: log-likelihoods against ``--pop_af_file``."""
+    import numpy as np
+
+    from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
+
+    if beagle is None:
+        raise ValueError("--get_pop_like needs the --beagle file")
+    print("Parsing population allele frequency file.")
+    if not os.path.isfile(args.pop_af_file or ""):
+        raise FileNotFoundError(
+            "Population allele frequency file does not exist!!")
+    af = np.load(args.pop_af_file)
+    print("Calculating likelihood of population assignment")
+    print(f"{beagle.n_inds} individuals to assign to {af.shape[1]} populations")
+    with timer.phase("pop_like"):
+        ll = assignment_loglikelihoods(beagle, af, cohort=cohort,
+                                       f64_sums=not args.f32_sums)
+    writers.write_loglike_txt(args.out, ll)
+    print(f"Saved population assignment log likelihoods as {args.out}"
+          ".pop_like.txt (text)")
 
 
 def _z_scores(args, beagle, cohort, timer, writers):
@@ -286,6 +394,43 @@ def _z_scores(args, beagle, cohort, timer, writers):
         writers.write_z_scores(args.out, res.z, reference_mode=False)
         print(f"Saved {len(res.z)} individual z-scores as {args.out}"
               ".z_ind.txt (text)")
+
+
+def _mixture(args, timer, writers):
+    """``--get_em_mix`` / ``--get_mcmc_mix`` on a ``--pop_like`` file (host
+    numpy; needs no Beagle file and touches no device data)."""
+    import numpy as np
+
+    from wgsassign_tpu.io.ids import read_ids
+    from wgsassign_tpu_torch.models.mixture import (
+        em_mixture,
+        format_mixture_output,
+        mcmc_mixture,
+    )
+
+    print("Parsing population assignment likelihood file.")
+    if not os.path.isfile(args.pop_like or ""):
+        raise FileNotFoundError(
+            "Population assignment log likelihood file does not exist!!")
+    if not os.path.isfile(args.pop_like_IDs or ""):
+        raise FileNotFoundError("ID file does not exist!!")
+    ll_mat = np.atleast_2d(np.loadtxt(args.pop_like))
+    harvest_labels = read_ids(args.pop_like_IDs).pop_labels
+    if args.get_em_mix:
+        print("Calculating mixture proportions with EM")
+        with timer.phase("mixture"):
+            res = em_mixture(ll_mat, harvest_labels, args.mixture_iter,
+                             stable=args.stable_mix)
+        writers.write_mixture(args.out, format_mixture_output(res), mcmc=False)
+        print(f"Saved EM mixture proportions {args.out}.em_mix.txt (text)")
+    if args.get_mcmc_mix:
+        print("Calculating mixture proportions with MCMC")
+        with timer.phase("mixture"):
+            res = mcmc_mixture(ll_mat, harvest_labels, args.mixture_iter,
+                               seed=args.mcmc_seed,
+                               posterior_mean=not args.mcmc_last_draw)
+        writers.write_mixture(args.out, format_mixture_output(res), mcmc=True)
+        print(f"Saved MCMC mixture proportions {args.out}.mcmc_mix.txt (text)")
 
 
 def _print_preview(name, items):

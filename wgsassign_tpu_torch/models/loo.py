@@ -43,6 +43,7 @@ from wgsassign_tpu_torch.ops.loglik import (
     assign_loglik_selected_f64,
     assign_loglik_selected_partitioned,
     assign_loglik_selected_partitioned_f64,
+    check_loglik_inputs,
 )
 from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
 from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
@@ -90,6 +91,7 @@ def leave_one_out(
     num_partitions: int = 1,
     runtime: Optional[Runtime] = None,
     cohort: Optional[DeviceCohort] = None,
+    downsampled_cohort: Optional[DeviceCohort] = None,
     compat_af_mutation: bool = True,
     verbose: bool = False,
     f64_sums: bool = True,
@@ -97,8 +99,12 @@ def leave_one_out(
     af_t_dev=None,
     chunk_op=loo_chunk,
 ) -> LooResult:
-    """``chunk_op`` is the LOO chunk function (see
-    :func:`wgsassign_tpu_torch.ops.fused_em.em_maf_loo_group_fused`)."""
+    """``downsampled_cohort`` is a prebuilt likelihood-pass cohort (the
+    streamed form of ``downsampled``).  ``chunk_op`` is the LOO chunk
+    function (see
+    :func:`wgsassign_tpu_torch.ops.fused_em.em_maf_loo_group_fused`).
+    Under the runtime's ``debug_checks`` the likelihood inputs are
+    sanitised first (:func:`check_loglik_inputs`)."""
     if cohort is None:
         cohort = to_device(beagle, runtime, site_multiple=num_partitions)
     rt = cohort.runtime
@@ -116,14 +122,19 @@ def leave_one_out(
         )
 
     # --- source cohort for the likelihood pass (optionally downsampled) ----
-    src = cohort
-    if downsampled is not None:
+    if downsampled_cohort is not None:  # prebuilt (streamed ingest)
+        src = downsampled_cohort
+    elif downsampled is not None:
         src = to_device(downsampled, rt, site_multiple=num_partitions)
-        if src.m_pad != cohort.m_pad or src.m_real != cohort.m_real:
-            raise ValueError(
-                "Downsampled Beagle must cover the same sites as the reference "
-                "after intersection"
-            )
+    else:
+        src = cohort
+    if src is not cohort and (
+        src.m_pad != cohort.m_pad or src.m_real != cohort.m_real
+    ):
+        raise ValueError(
+            "Downsampled Beagle must cover the same sites as the reference "
+            "after intersection"
+        )
 
     k = popmap.n_pops
     if af_t_dev is not None and tuple(af_t_dev.shape) == (k, m_pad):
@@ -135,6 +146,9 @@ def leave_one_out(
         af_t_h = np.full((k, m_pad), PAD_AF, dtype=np.float32)
         af_t_h[:, :m_real] = np.asarray(af_full, np.float32).T
         af_t = torch.from_numpy(af_t_h).to(device)  # the only (small) H2D
+    if rt.debug_checks:
+        check_loglik_inputs(cohort.g0, cohort.g1, af_t.t(),
+                            cohort.site_weight)
     col_idx_global = loo_af_column_index(popmap, compat_af_mutation)
     iters = np.empty(n, dtype=np.int32)
     converged = np.empty(n, dtype=bool)

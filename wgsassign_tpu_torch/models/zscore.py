@@ -245,20 +245,46 @@ class _ZBlock:
         ).astype(F32)
 
 
-def _prepare_tables(beagle, ad, inds, n_threshold, single_read_threshold,
-                    error_rate=SEQ_ERROR_RATE):
+def _gl_column_iter(beagle, cohort, inds, chunk: Optional[int] = None):
+    """Yield ``(i, gl_i [M_real, 2] float32)`` per individual.
+
+    From the host parse when it is resident (a :class:`BeagleData`);
+    otherwise (``--stream_ingest``: the GL matrix exists only on the
+    device) the columns are gathered from the device cohort ``chunk``
+    individuals at a time, ~256 MB per copy to the host."""
+    if isinstance(beagle, BeagleData):
+        for i in inds:
+            yield i, beagle.gl[:, i, :]
+        return
+    m_real = cohort.m_real
+    if chunk is None:
+        chunk = max(1, (1 << 28) // (8 * max(m_real, 1)))
+    dev = cohort.runtime.device
+    for lo in range(0, len(inds), chunk):
+        block = list(inds[lo : lo + chunk])
+        idx = _put(np.asarray(block, np.int64), dev)
+        cols = torch.stack([cohort.g0[:m_real].index_select(1, idx),
+                            cohort.g1[:m_real].index_select(1, idx)],
+                           dim=-1).cpu().numpy()  # [M_real, B, 2]
+        for bi, i in enumerate(block):
+            yield i, cols[:, bi, :]
+
+
+def _prepare_tables(beagle, cohort, ad, inds, n_threshold,
+                    single_read_threshold, error_rate=SEQ_ERROR_RATE):
     """Combo tables + split enumerations for every individual in the range,
     and the shared padded shapes.
 
     Individuals build concurrently on a host thread pool (numpy's sort and
     bincount passes release the GIL); a bounded in-flight window keeps peak
     memory at O(workers) GL columns, not O(N).  Failures surface in
-    individual order, as in a serial loop."""
+    individual order, as in a serial loop.  The GL columns come from
+    :func:`_gl_column_iter`."""
     tables, splits = {}, {}
 
-    def build(i):
+    def build(i, gl_i):
         t = build_combo_tables(
-            beagle.gl[:, i, :], ad[:, 2 * i : 2 * i + 2],
+            gl_i, ad[:, 2 * i : 2 * i + 2],
             n_threshold, single_read_threshold, e=error_rate,
         )
         return i, t, _split_tables(t)
@@ -272,8 +298,8 @@ def _prepare_tables(beagle, ad, inds, n_threshold, single_read_threshold,
 
     pending = deque()
     with ThreadPoolExecutor(workers) as pool:
-        for i in inds:
-            pending.append(pool.submit(build, i))
+        for i, gl_i in _gl_column_iter(beagle, cohort, inds):
+            pending.append(pool.submit(build, i, gl_i))
             while len(pending) > 2 * workers:
                 drain(pending.popleft())
         while pending:
@@ -392,7 +418,8 @@ def _run_blocks(
         return out
     with phase("zscore_tables"):
         tables, splits, s_max, c_max, r_max = _prepare_tables(
-            beagle, ad, inds, n_threshold, single_read_threshold, error_rate,
+            beagle, cohort, ad, inds, n_threshold, single_read_threshold,
+            error_rate,
         )
     s_pad = _bucket(s_max, 1)
     c_pad = _bucket(c_max, 4)

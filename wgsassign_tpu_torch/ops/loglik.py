@@ -12,9 +12,12 @@ that form; the plain ones sum in float32 (``--f32_sums``).
 
 "Selected" forms give each (individual, population) pair its own AF row of
 a site-minor bank ``af_bank_t [C, M]`` through ``col_idx [N, K]`` -- the
-leave-one-out path's in-place-AF semantics.  Individuals are processed in
-blocks sized so the ``[block, K, M]`` float32 temporaries stay within
-:data:`BLOCK_ELEMENTS`.
+leave-one-out path's in-place-AF semantics.  The unselected forms
+(``--get_pop_like``) are the selected ones over the bank ``af.T`` with
+``col_idx[i, k] = k``.  Individuals are processed in blocks sized so the
+``[block, K, M]`` float32 temporaries stay within :data:`BLOCK_ELEMENTS`:
+the JAX op fuses the ``[M, N, K]`` product into the site reduction, a
+plain torch broadcast would materialise it (3.6 GB at 1M x 180 x 5).
 """
 
 from __future__ import annotations
@@ -27,16 +30,20 @@ import torch
 BLOCK_ELEMENTS = 1 << 28
 
 
+def site_like(g0, g1, a):
+    """g0*(1-a)^2 + g1*2a(1-a) + (1-g0-g1)*a^2, broadcasting."""
+    oma = 1.0 - a
+    return g0 * oma * oma + g1 * 2.0 * a * oma + (1.0 - g0 - g1) * a * a
+
+
 def site_loglik(g0, g1, a):
     """log( g0*(1-a)^2 + g1*2a(1-a) + (1-g0-g1)*a^2 ), broadcasting."""
-    oma = 1.0 - a
-    like = g0 * oma * oma + g1 * 2.0 * a * oma + (1.0 - g0 - g1) * a * a
-    return torch.log(like)
+    return torch.log(site_like(g0, g1, a))
 
 
-def _selected_site_ll(g0, g1, af_bank_t, col_idx, site_weight):
-    """Yield ``(rows, ll [b, K, M] float32)`` per individual block: the
-    weighted per-site log-likelihoods of the selected AF rows."""
+def _selected_site_like(g0, g1, af_bank_t, col_idx):
+    """Yield ``(rows, like [b, K, M] float32)`` per individual block: the
+    per-site likelihoods of the selected AF rows."""
     m, n = g0.shape
     k = col_idx.shape[1]
     b = max(1, BLOCK_ELEMENTS // max(k * m, 1))
@@ -44,9 +51,15 @@ def _selected_site_ll(g0, g1, af_bank_t, col_idx, site_weight):
     for lo in range(0, n, b):
         hi = min(lo + b, n)
         a = af_bank_t[idx[lo:hi]]  # [b, K, M]
-        ll = site_loglik(g0[:, lo:hi].t()[:, None, :],
-                         g1[:, lo:hi].t()[:, None, :], a)
-        yield slice(lo, hi), ll * site_weight
+        yield slice(lo, hi), site_like(g0[:, lo:hi].t()[:, None, :],
+                                       g1[:, lo:hi].t()[:, None, :], a)
+
+
+def _selected_site_ll(g0, g1, af_bank_t, col_idx, site_weight):
+    """Yield ``(rows, ll [b, K, M] float32)`` per individual block: the
+    weighted per-site log-likelihoods of the selected AF rows."""
+    for rows, like in _selected_site_like(g0, g1, af_bank_t, col_idx):
+        yield rows, torch.log(like) * site_weight
 
 
 def _selected_sums(g0, g1, af_bank_t, col_idx, site_weight, dtype):
@@ -115,3 +128,74 @@ def assign_loglik_selected_partitioned_f64(g0, g1, af_bank_t, col_idx,
                                      num_partitions, torch.float64)
     parts = parts.cpu().numpy()
     return parts.sum(axis=2), np.transpose(parts, (0, 2, 1))
+
+
+# --- unselected forms: every individual against the same [M, K] panel ----
+
+def _identity_columns(n: int, af) -> tuple:
+    """``(bank [K, M], col_idx [N, K])`` that make the selected forms
+    evaluate every individual against every column of ``af [M, K]``."""
+    k = af.shape[1]
+    col_idx = torch.arange(k, device=af.device).expand(n, k)
+    return af.t().contiguous(), col_idx
+
+
+def assign_loglik(g0, g1, af, site_weight):
+    """Full ``[N, K]`` assignment log-likelihood matrix, float32 sums.
+
+    Args:
+      g0, g1: float32 ``[M, N]``.
+      af: float32 ``[M, K]`` population allele frequencies.
+      site_weight: float32 ``[M]`` (0 for padded sites).
+
+    Returns: float32 ``[N, K]`` tensor.
+    """
+    bank, col_idx = _identity_columns(g0.shape[1], af)
+    return assign_loglik_selected(g0, g1, bank, col_idx, site_weight)
+
+
+def assign_loglik_f64(g0, g1, af, site_weight) -> np.ndarray:
+    """``[N, K]`` assignment log-likelihoods with float64 site sums
+    (reference glassy.py:38).  Returns np.float64."""
+    bank, col_idx = _identity_columns(g0.shape[1], af)
+    return assign_loglik_selected_f64(g0, g1, bank, col_idx, site_weight)
+
+
+def assign_loglik_partitioned(g0, g1, af, site_weight, num_partitions: int):
+    """Per-partition float32 sums ``[P, N, K]``: partition p holds the sites
+    with ``s % P == p``.  The (padded) site count must be a multiple of P."""
+    bank, col_idx = _identity_columns(g0.shape[1], af)
+    parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
+                                     num_partitions, torch.float32)
+    return parts.permute(2, 0, 1)
+
+
+def assign_loglik_partitioned_f64(g0, g1, af, site_weight,
+                                  num_partitions: int) -> np.ndarray:
+    """Partitioned sums ``[P, N, K]`` with float64 site sums, as NumPy."""
+    bank, col_idx = _identity_columns(g0.shape[1], af)
+    parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
+                                     num_partitions, torch.float64)
+    return np.transpose(parts.cpu().numpy(), (2, 0, 1))
+
+
+def check_loglik_inputs(g0, g1, af, site_weight) -> None:
+    """Sanitizer for the reachable ``log(0)``: malformed GL triples
+    (negative GLs, or g0+g1 > 1 making g2 negative) drive the per-site
+    likelihood to zero or below, which the likelihood passes would fold
+    into silent ``-inf``/NaN sums.  Run under ``--debug_checks`` before the
+    assignment and LOO likelihood passes.  Counts the (site, individual,
+    population) cells of ``af [M, K]`` with ``like <= 0`` or NaN on
+    weighted sites, blocked over individuals like the passes, and raises
+    ``ValueError`` with the count."""
+    bank, col_idx = _identity_columns(g0.shape[1], af)
+    weighted = site_weight > 0.0
+    bad = 0
+    for _, like in _selected_site_like(g0, g1, bank, col_idx):
+        bad += int((((like <= 0.0) | torch.isnan(like)) & weighted).sum())
+    if bad:
+        raise ValueError(
+            f"non-positive assignment likelihood at {bad} (site, individual, "
+            "population) cells -- malformed GL triples (negative GLs or "
+            "g0+g1 > 1)?"
+        )

@@ -30,8 +30,8 @@ class Runtime:
     # algebraically-reduced EM weight inside the kernels, DEFAULT ON (see
     # ops/em_chunk.py::em_w); --no_fast_em selects the canonical form
     fast_math: bool = True
-    # sanitizers of the likelihood inputs; --debug_checks is not ported yet
-    # (ROADMAP item 14), so nothing sets it
+    # --debug_checks: sanitise the likelihood inputs before the assignment
+    # and LOO likelihood passes (ops/loglik.py::check_loglik_inputs)
     debug_checks: bool = False
     _probed: bool = field(default=False, init=False, repr=False)
 
@@ -53,7 +53,8 @@ class Runtime:
         return True
 
 
-def make_runtime(device="cuda:0", fast_math: bool = True) -> Runtime:
+def make_runtime(device="cuda:0", fast_math: bool = True,
+                 debug_checks: bool = False) -> Runtime:
     """Build the runtime for ``device``.
 
     float32 matrix products and convolutions run in full float32 (no TF32),
@@ -69,7 +70,8 @@ def make_runtime(device="cuda:0", fast_math: bool = True) -> Runtime:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return Runtime(device=device, fast_math=fast_math)
+    return Runtime(device=device, fast_math=fast_math,
+                   debug_checks=debug_checks)
 
 
 def synchronize(device: torch.device) -> None:
