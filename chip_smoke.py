@@ -6,11 +6,14 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi);
-2. build: compile csrc/*.cu with nvcc for sm_90a (one nvcc per source, all
+2. build: the native Beagle reader (g++, must load: the parse times are
+   its), then csrc/*.cu with nvcc for sm_90a (one nvcc per source, all
    started together), load, run the probe;
 3. every kernel against its plain PyTorch twin on the card, at the shapes
-   its path gives it, with both times (and, for the two z-score kernels,
-   the kernel's time at the other EM structure's typical kept fraction);
+   its path gives it, with both times, the kernel's bound on this card and
+   its share of it, the occupancy the CUDA runtime reports for ``em_chunk``
+   and ``loo_chunk`` (and, for the two z-score kernels, the kernel's time
+   at the other EM structure's typical kept fraction);
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
@@ -36,8 +39,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    triple.
 
 The line before the last is a JSON object with each kernel's launches on
-its path (phase 4, 6a or 6b), its largest difference from the twin and both
-times in phase 3; the last line is ``{"ok": true, "device": {...}}``.
+its path (phase 4, 6a or 6b), its largest difference from the twin, both
+times in phase 3, its bound and, where one PyTorch call computes the same
+function, that call's time; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero and prints no result.
 """
@@ -68,6 +72,15 @@ NE_RTOL, NE_ATOL = 1e-5, 1e-4
 # mixture proportions: each row sums to 1 (float32 text in the files)
 MIX_ATOL = 1e-5
 
+# The card's published peaks (H100 SXM): float32 outside the tensor cores,
+# and device memory.  A kernel's bound is the larger of its operations over
+# the first and its bytes (each input read once, each output written once)
+# over the second.  An EM weight (csrc/common.cuh::em_w<true>, g2 = 1 - g0 -
+# g1 and the accumulate included) is 15 float32 operations, the divide
+# counted as one.
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+OPS_PER_WEIGHT = 15
+
 PALLAS = "wgsassign_tpu/ops/pallas_emmaf.py"
 # kernel -> (source, TPU kernel it replaces, phase whose path launches it)
 KERNELS = {
@@ -86,6 +99,21 @@ KERNELS = {
 
 def paths_kernels(path):
     return [name for name, (_, _, p) in KERNELS.items() if p == path]
+
+
+def bound(ops, nbytes):
+    """``bound_ms``, ``bound_by``: the least time the card could take for
+    ``ops`` float32 operations on ``nbytes`` bytes of inputs and outputs."""
+    ops_ms = ops / PEAK_F32_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    if ops_ms >= bytes_ms:
+        return {"bound_ms": ops_ms, "bound_by": "operations"}
+    return {"bound_ms": bytes_ms, "bound_by": "bytes"}
+
+
+def updates(limits, T):
+    """Updates the chunk contract asks of problems with these limits."""
+    return float(limits.clamp(0, T).sum())
 
 
 def phase(name, t0, **info):
@@ -147,8 +175,17 @@ def kernels_vs_twins(dev, results):
     import torch
 
     from wgsassign_tpu_torch import _kernels
-    from wgsassign_tpu_torch.ops.em_chunk import em_chunk, em_chunk_twin
-    from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk, loo_chunk_twin
+    from wgsassign_tpu_torch.ops.em_chunk import (
+        EM_LANES,
+        em_chunk,
+        em_chunk_geometry,
+        em_chunk_twin,
+    )
+    from wgsassign_tpu_torch.ops.loo_chunk import (
+        loo_chunk,
+        loo_chunk_geometry,
+        loo_chunk_twin,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -159,7 +196,9 @@ def kernels_vs_twins(dev, results):
         _kernels.launch("probe", dev, x.data_ptr(), y.data_ptr(), x.numel())
 
     results["probe"].update(
-        ms=time_ms(probe, 100), plain_ms=time_ms(lambda: x + 1.0, 100))
+        ms=time_ms(probe, 100), plain_ms=time_ms(lambda: x + 1.0, 100),
+        library_ms=time_ms(lambda: torch.add(x, 1.0), 100),
+        **bound(x.numel(), 2 * 4 * x.numel()))
     results["probe"]["max_abs_err"] = float((y - (x + 1.0)).abs().max())
 
     m, n, k, T = M_MAIN, N_MAIN, K_MAIN, 16
@@ -174,7 +213,15 @@ def kernels_vs_twins(dev, results):
         f_t, sq_t = em_chunk_twin(g0, g1, ft, pop, inv, lim, T, fast)
         errs.append(check_pair(f"em_chunk fast_math={fast}", f_k, f_t,
                                sq_k, sq_t))
+    sizes = torch.bincount(pop, minlength=k).float()
+    weights = m * float((sizes * lim.clamp(0, T)).sum())
+    geo = em_chunk_geometry(n, k, T)
     results["em_chunk"].update(
+        **bound(weights * OPS_PER_WEIGHT,
+                4 * (2 * m * n + 2 * k * m + T * k + 3 * k + n)),
+        occupancy="{}x{}warps".format(
+            _kernels.occupancy("em_chunk", dev, geo[0], geo[3]),
+            geo[0] * EM_LANES // 32),
         max_abs_err=max(errs),
         ms=time_ms(lambda: em_chunk(g0, g1, ft, pop, inv, lim, T), 5),
         plain_ms=time_ms(lambda: em_chunk_twin(g0, g1, ft, pop, inv, lim, T),
@@ -195,7 +242,12 @@ def kernels_vs_twins(dev, results):
         f_t, sq_t = loo_chunk_twin(g0p, g1p, ftp, limp, n_real, T, fast)
         errs.append(check_pair(f"loo_chunk fast_math={fast}", f_k, f_t,
                                sq_k, sq_t))
+    warps, smem = loo_chunk_geometry(n_real)
     results["loo_chunk"].update(
+        **bound(m * (n_real - 1) * updates(limp, T) * OPS_PER_WEIGHT,
+                4 * (2 * n_real * m + 2 * p * m + T * p + p)),
+        occupancy="{}x{}warps".format(
+            _kernels.occupancy("loo_chunk", dev, warps, smem), warps),
         max_abs_err=max(errs),
         ms=time_ms(lambda: loo_chunk(g0p, g1p, ftp, limp, n_real, T), 5),
         plain_ms=time_ms(
@@ -237,6 +289,8 @@ def zscore_kernels_vs_twins(dev, gen, results):
                                sq_k, sq_t))
     sw_low = (torch.rand((b, m), generator=gen, device=dev) < 0.27).float()
     results["zloo_chunk"].update(
+        **bound(m * (n_real - 1) * updates(lim, T) * OPS_PER_WEIGHT,
+                4 * (2 * n_real * m + 3 * b * m + T * b + 2 * b)),
         max_abs_err=max(errs),
         ms=time_ms(lambda: zloo_chunk(*args), 5),
         plain_ms=time_ms(lambda: zloo_chunk_twin(*args), 2),
@@ -271,7 +325,10 @@ def zscore_kernels_vs_twins(dev, gen, results):
             f_t, sq_t = sites_chunk_twin(*args, fast)
             errs.append(check_pair(f"sites_chunk fast_math={fast}", f_k, f_t,
                                    sq_k, sq_t))
+        weights = s * float((mask.sum(dim=1) * lim.clamp(0, T)).sum())
         results["sites_chunk"].update(
+            **bound(weights * OPS_PER_WEIGHT,
+                    4 * (2 * b * p * s + 3 * b * s + b * p + T * b + 2 * b)),
             max_abs_err=max(errs),
             ms=time_ms(lambda: sites_chunk(*args), 5),
             plain_ms=time_ms(lambda: sites_chunk_twin(*args), 2),
@@ -283,7 +340,7 @@ def zscore_kernels_vs_twins(dev, gen, results):
 
 def synth_file(m, n, k, seed):
     """The synthetic Beagle and IDs files, cached by shape and seed."""
-    from wgsassign_tpu.io.synth import synth_beagle_file
+    from wgsassign_tpu_torch.io.synth import synth_beagle_file
 
     os.makedirs(WORK, exist_ok=True)
     stem = os.path.join(WORK, f"synth_M{m}_N{n}_K{k}_seed{seed}")
@@ -305,7 +362,7 @@ def write_synth_ad(path, m, n, k, seed, chunk=100_000):
     site, rendered through a byte lookup table."""
     import numpy as np
 
-    from wgsassign_tpu.io.synth import synth_cohort
+    from wgsassign_tpu_torch.io.synth import synth_cohort
 
     with open(path, "wb") as f:
         for lo in range(0, m, chunk):
@@ -369,9 +426,9 @@ def parity(dev):
     """Phase 5: the whole path with kernels against the twins, on the card."""
     import numpy as np
 
-    from wgsassign_tpu.io.beagle import BeagleData
-    from wgsassign_tpu.io.ids import population_map
-    from wgsassign_tpu.io.synth import synth_cohort
+    from wgsassign_tpu_torch.io.beagle import BeagleData
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.io.synth import synth_cohort
     from wgsassign_tpu_torch.models.common import to_device
     from wgsassign_tpu_torch.models.loo import leave_one_out
     from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
@@ -479,9 +536,9 @@ def zscore_parity(dev):
     CPU, at 100,000 sites."""
     import numpy as np
 
-    from wgsassign_tpu.io.beagle import BeagleData
-    from wgsassign_tpu.io.ids import population_map
-    from wgsassign_tpu.io.synth import synth_cohort
+    from wgsassign_tpu_torch.io.beagle import BeagleData
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.io.synth import synth_cohort
     from wgsassign_tpu_torch.models.common import to_device
     from wgsassign_tpu_torch.models.zscore import (
         assignment_z_scores,
@@ -650,9 +707,9 @@ def analyses_parity(dev):
     import numpy as np
     import torch
 
-    from wgsassign_tpu.io.beagle import BeagleData, read_beagle
-    from wgsassign_tpu.io.ids import population_map
-    from wgsassign_tpu.io.synth import synth_beagle_file, synth_cohort
+    from wgsassign_tpu_torch.io.beagle import BeagleData, read_beagle
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.io.synth import synth_beagle_file, synth_cohort
     from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
     from wgsassign_tpu_torch.models.common import stream_to_device, to_device
     from wgsassign_tpu_torch.models.ne import effective_sample_sizes
@@ -742,14 +799,22 @@ def main():
     phase("1 environment", t0, device=repr(torch.cuda.get_device_name(dev)),
           torch=torch.__version__, cuda=torch.version.cuda)
 
+    from wgsassign_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    if not _native.native_available():
+        raise AssertionError("the native Beagle reader did not build or load "
+                             "(g++ and zlib are needed on this host)")
+    phase("2a native-reader", t0, loaded=True,
+          path=os.path.relpath(_native.library_path(), ROOT))
     t0 = time.perf_counter()
     _, build_s = _kernels.build()
     _kernels.library()
     _kernels.probe(dev)
-    phase("2 build", t0, nvcc_s=f"{build_s:.3f}")
+    phase("2b build", t0, nvcc_s=f"{build_s:.3f}")
 
     results = {name: {"name": name, "route": "cuda", "source": src,
-                      "replaces": rep}
+                      "replaces": rep, "library_ms": None}
                for name, (src, rep, _) in KERNELS.items()}
     t0 = time.perf_counter()
     kernels_vs_twins(dev, results)
@@ -758,6 +823,14 @@ def main():
            + (f"/{r['other_shape']}:{r['other_fill_ms']:.3f}ms"
               if "other_fill_ms" in r else "")
         for n, r in results.items()})
+    for n, r in results.items():
+        print(f"[phase 3 {n}] shape=({r.get('shape', '8x128')}) "
+              f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"bound_by={r['bound_by']} "
+              f"share_of_bound={r['bound_ms'] / r['ms']:.4f} "
+              f"library_ms={r['library_ms']}"
+              + (f" occupancy_blocks_per_sm={r['occupancy']}"
+                 if "occupancy" in r else ""), flush=True)
     torch.cuda.empty_cache()
 
     main_counts, main_totals = main_path(results)
@@ -772,9 +845,16 @@ def main():
     torch.cuda.empty_cache()
     analyses_parity(dev)
 
+    for n, r in results.items():
+        print(f"[kernel {n}] launches={r['launches']} on the path of phase "
+              f"{KERNELS[n][2]}, ms={r['ms']:.4f}, bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), launches x (ms - "
+              f"bound_ms)={r['launches'] * (r['ms'] - r['bound_ms']):.3f}",
+              flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms")}
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
         for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ package's device code, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: the kernels round op for op like the twins (-fmad=false, IEEE
-division, members summed in the same order), so ``ft`` agrees to atol 1e-6
+division, members summed in the same order: ``em_chunk``'s twin sums
+lane-strided partial sums and a butterfly as its kernel does), so ``ft`` agrees to atol 1e-6
 and ``sq`` -- summed over sites in another order (warp shuffles, blocks) --
 to rtol 1e-5.  The analyses without a kernel (assignment log-likelihoods,
 Ne) are held to the CPU at the tolerances of tests/test_torch_assign.py and
@@ -21,14 +22,22 @@ import pytest
 import torch
 
 from wgsassign_tpu_torch import _kernels
-from wgsassign_tpu_torch.ops.em_chunk import em_chunk, em_chunk_twin
+from wgsassign_tpu_torch.ops.em_chunk import (
+    em_chunk,
+    em_chunk_geometry,
+    em_chunk_twin,
+)
 from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_group_fused,
     em_maf_loo_subset_fused,
     em_maf_pops_fused,
     em_maf_sites_batch_fused,
 )
-from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk, loo_chunk_twin
+from wgsassign_tpu_torch.ops.loo_chunk import (
+    loo_chunk,
+    loo_chunk_twin,
+    max_loo_members,
+)
 from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk, sites_chunk_twin
 from wgsassign_tpu_torch.ops.zloo_chunk import (
     max_zloo_members,
@@ -68,17 +77,24 @@ def test_runtime_probes_once(cuda):
 
 
 @pytest.mark.parametrize("fast_math", [True, False])
-@pytest.mark.parametrize("m,n,k", [
-    (1000, 37, 3),    # resident tile, ragged last block
-    (300, 3000, 4),   # wider than shared memory: staged per iteration
+@pytest.mark.parametrize("m,n,k,limits", [
+    (1000, 37, 3, [7, 3, 0]),      # resident tile, ragged last block
+    (300, 3000, 4, [7, 3, 0, 7]),  # resident in a block of 8 sites
+    (70, 7300, 4, [7, 3, 0, 7]),   # wider than shared memory: sliced walk
+    # N one over and one under a multiple of 32 and of the 8 lanes; one
+    # population and eight; limits of 0 and mixed; M off the 16-site tile
+    (72, 33, 3, [7, 7, 7]), (72, 31, 3, [7, 2, 0]),
+    (50, 9, 1, [7]), (50, 7, 1, [3]), (50, 8, 1, [0]),
+    (100, 65, 8, [7, 0, 1, 7, 2, 0, 3, 7]), (17, 41, 8, [7] * 8),
+    (130, 24, 2, [0, 0]),
 ])
-def test_em_chunk_kernel_matches_twin(cuda, fast_math, m, n, k):
+def test_em_chunk_kernel_matches_twin(cuda, fast_math, m, n, k, limits):
     g0, g1 = _gls(m, n, 1)
     rng = np.random.default_rng(2)
     ft = rng.uniform(0.05, 0.95, size=(k, m)).astype(np.float32)
-    pop = (np.arange(n) % k).astype(np.int32)
+    pop = rng.permutation(np.arange(n) % k).astype(np.int32)
     inv = (1.0 / np.bincount(pop, minlength=k)).astype(np.float32)
-    lim = np.asarray([7, 3, 0, 7][:k], np.float32)
+    lim = np.asarray(limits, np.float32)
     args = [torch.from_numpy(a).to(cuda) for a in (g0, g1, ft, pop, inv, lim)]
     before = _kernels.launches["em_chunk"]
     f_k, sq_k = em_chunk(*args, 7, fast_math=fast_math)
@@ -89,22 +105,65 @@ def test_em_chunk_kernel_matches_twin(cuda, fast_math, m, n, k):
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
+def test_em_chunk_sliced_path_is_reached():
+    """The widest case above really leaves the resident path."""
+    _, _, nc, _ = em_chunk_geometry(7300, 4, 7)
+    assert nc < 7300
+    assert em_chunk_geometry(3000, 4, 7)[2] == 3000
+
+
 @pytest.mark.parametrize("fast_math", [True, False])
-def test_loo_chunk_kernel_matches_twin(cuda, fast_math):
-    g0p, g1p = _gls(16, 1000, 3)
-    g0p[11:], g1p[11:] = 1.0, 0.0
+@pytest.mark.parametrize("n_real,p,m,limits", [
+    (11, 16, 1000, "mixed"),   # ragged last tile, 16-byte copies elsewhere
+    # n_real one over and one under a multiple of 32 and of the problem
+    # tile; limits of 0 and mixed; M off the 32-site tile and off 4
+    (33, 40, 70, "all"), (31, 32, 70, "mixed"), (5, 8, 257, "mixed"),
+    (3, 8, 33, "all"), (2, 8, 64, "all"), (9, 16, 30, "zero"),
+    (36, 40, 1001, "mixed"),   # rows not 16-byte aligned: plain loads
+])
+def test_loo_chunk_kernel_matches_twin(cuda, fast_math, n_real, p, m, limits):
+    T = 6
+    g0p, g1p = _gls(p, m, 3)
+    g0p[n_real:], g1p[n_real:] = 1.0, 0.0
     ft = np.random.default_rng(4).uniform(
-        0.05, 0.95, size=(16, 1000)).astype(np.float32)
-    lim = np.asarray([6, 2, 0, 6, 6, 1, 6, 6, 6, 6, 6, 0, 0, 0, 0, 0],
-                     np.float32)
+        0.05, 0.95, size=(p, m)).astype(np.float32)
+    lim = np.zeros(p, np.float32)
+    if limits == "all":
+        lim[:n_real] = T
+    elif limits == "mixed":
+        lim[:n_real] = (np.arange(n_real) * 5) % (T + 1)
     args = [torch.from_numpy(a).to(cuda) for a in (g0p, g1p, ft, lim)]
     before = _kernels.launches["loo_chunk"]
-    f_k, sq_k = loo_chunk(*args, 11, 6, fast_math=fast_math)
+    f_k, sq_k = loo_chunk(*args, n_real, T, fast_math=fast_math)
     assert _kernels.launches["loo_chunk"] == before + 1
-    f_t, sq_t = loo_chunk_twin(*args, 11, 6, fast_math=fast_math)
+    f_t, sq_t = loo_chunk_twin(*args, n_real, T, fast_math=fast_math)
     torch.cuda.synchronize()
     torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+
+
+def test_loo_chunk_member_bound(cuda):
+    """At the bound the kernel runs and agrees with the twin; one member
+    more raises before any launch."""
+    bound, m, T = max_loo_members(), 40, 2
+    assert bound == 908
+    g0p, g1p = _gls(bound + 1, m, 12)
+    ft = np.random.default_rng(13).uniform(
+        0.05, 0.95, size=(bound + 1, m)).astype(np.float32)
+    g0d, g1d, ftd = (torch.from_numpy(a).to(cuda) for a in (g0p, g1p, ft))
+    lim = torch.full((bound,), float(T), device=cuda)
+    args = (g0d[:bound].contiguous(), g1d[:bound].contiguous(),
+            ftd[:bound].contiguous(), lim)
+    f_k, sq_k = loo_chunk(*args, bound, T)
+    f_t, sq_t = loo_chunk_twin(*args, bound, T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+    before = _kernels.launches["loo_chunk"]
+    with pytest.raises(ValueError, match="908 members"):
+        loo_chunk(g0d, g1d, ftd, torch.full((bound + 1,), float(T),
+                                            device=cuda), bound + 1, T)
+    assert _kernels.launches["loo_chunk"] == before
 
 
 def test_wrapper_rejects_bad_operands(cuda):
@@ -231,7 +290,7 @@ def test_zscore_fused_ems_kernel_vs_twin(cuda):
 
 
 def _beagle(m, n, seed):
-    from wgsassign_tpu.io.beagle import BeagleData
+    from wgsassign_tpu_torch.io.beagle import BeagleData
 
     raw = np.random.default_rng(seed).dirichlet(np.ones(3), size=(m, n))
     gl = np.ascontiguousarray(raw[:, :, :2].astype(np.float32))
@@ -260,7 +319,7 @@ def test_assignment_loglikelihoods_card_vs_cpu(cuda, p, f64_sums):
 
 
 def test_effective_sample_sizes_card_vs_cpu(cuda):
-    from wgsassign_tpu.io.ids import population_map
+    from wgsassign_tpu_torch.io.ids import population_map
     from wgsassign_tpu_torch.models.ne import effective_sample_sizes
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
@@ -284,8 +343,8 @@ def test_stream_to_device_card_bitmatches(cuda, tmp_path, monkeypatch, keep,
                                          overlap):
     """Pinned staging buffers, side-stream copies and on-card plane splits
     give the in-memory cohort bit for bit."""
-    from wgsassign_tpu.io.beagle import BeagleData, read_beagle
-    from wgsassign_tpu.io.synth import write_beagle
+    from wgsassign_tpu_torch.io.beagle import BeagleData, read_beagle
+    from wgsassign_tpu_torch.io.synth import write_beagle
     from wgsassign_tpu_torch.models.common import stream_to_device, to_device
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
 

@@ -15,6 +15,9 @@ import jax.numpy as jnp
 from wgsassign_tpu.ops.pallas_emmaf import loo_chunk_pallas
 from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.ops.loo_chunk import (
+    LOO_MAX_WARPS,
+    LOO_PROBLEM_TILE,
+    LOO_SITES,
     loo_chunk,
     loo_chunk_geometry,
     loo_chunk_twin,
@@ -69,21 +72,57 @@ def test_wrapper_runs_twin_on_cpu_and_keeps_input():
     assert _kernels.launches["loo_chunk"] == before
 
 
-@pytest.mark.parametrize("n_p,t,block_sites", [
-    (36, 8, 128),    # the headline population size
-    (300, 8, 64),
-    (700, 8, 32),
+@pytest.mark.parametrize("n_real,np_pad,m,limits", [
+    # n_real one over and one under a multiple of 32 and of the problem
+    # tile; limits of 0 and mixed; M off the 32-site tile and off 4
+    (33, 40, 70, "all"), (31, 32, 70, "mixed"), (5, 8, 257, "mixed"),
+    (3, 8, 33, "all"), (2, 8, 64, "all"), (9, 16, 30, "zero"),
 ])
-def test_geometry_picks_widest_tile(n_p, t, block_sites):
-    s, smem = loo_chunk_geometry(n_p, n_p, t)
-    assert s == block_sites
-    assert smem <= _kernels.SMEM_LIMIT
+@pytest.mark.parametrize("fast_math", [True, False])
+def test_twin_matches_pallas_chunk_shapes(n_real, np_pad, m, limits,
+                                          fast_math):
+    T = 3
+    g0p, g1p, ft = _loo_inputs(n_real, np_pad, m, seed=5)
+    lim = np.zeros(np_pad, np.float32)
+    if limits == "all":
+        lim[:n_real] = T
+    elif limits == "mixed":
+        lim[:n_real] = np.arange(n_real) % (T + 1)
+    f_ref, sq_ref = loo_chunk_pallas(
+        jnp.asarray(g0p), jnp.asarray(g1p), jnp.asarray(ft),
+        jnp.asarray(lim.reshape(1, -1)), n_real, T, interpret=True,
+        fast_math=fast_math,
+    )
+    f, sq = loo_chunk(*map(torch.from_numpy, (g0p, g1p, ft, lim)), n_real, T,
+                      fast_math=fast_math)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,
+                               atol=1e-12)
+    for j in np.flatnonzero(lim == 0):
+        np.testing.assert_array_equal(f.numpy()[j], ft[j])
+        assert not sq.numpy()[:, j].any()
+
+
+@pytest.mark.parametrize("n_p,warps", [
+    (36, 3),     # the headline population size: 9 tiles, three rounds each
+    (40, 2),     # 10 tiles over 2 warps
+    (300, 8),    # a large tile: as many warps as a block may have
+    (5, 1),      # two tiles of a small population
+])
+def test_geometry_picks_widest_tile(n_p, warps):
+    """The block's tile is [n_p, LOO_SITES] whatever the chunk length; the
+    warp count leaves no warp idle where it can."""
+    w, smem = loo_chunk_geometry(n_p)
+    assert w == warps and 1 <= w <= LOO_MAX_WARPS
+    assert smem == 4 * 2 * n_p * LOO_SITES <= _kernels.SMEM_LIMIT
+    tiles = -(-n_p // LOO_PROBLEM_TILE)
+    assert -(-tiles // w) * w - tiles < w
 
 
 def test_member_bound_raises():
-    bound = max_loo_members(8)
-    assert bound == 807
-    loo_chunk_geometry(bound, bound, 8)
-    with pytest.raises(ValueError, match="807 members"):
-        loo_chunk_geometry(bound + 1, bound + 1, 8)
-
+    bound = max_loo_members()
+    assert bound == 908
+    loo_chunk_geometry(bound)
+    with pytest.raises(ValueError, match="908 members"):
+        loo_chunk_geometry(bound + 1)

@@ -277,7 +277,8 @@ def test_assignment_af_dim_validation(cohort_data):
 
 
 def test_zscore_modules_never_load_jax():
-    """A fresh interpreter, because this pytest process has imported jax."""
+    """A fresh interpreter, because this pytest process has imported jax:
+    neither ``jax`` nor any module of ``wgsassign_tpu`` is loaded."""
     code = (
         "import sys\n"
         "import wgsassign_tpu_torch.models.zscore\n"
@@ -286,7 +287,9 @@ def test_zscore_modules_never_load_jax():
         "import wgsassign_tpu_torch.ops.sites_chunk\n"
         "import wgsassign_tpu_torch.ops.fused_em\n"
         "import wgsassign_tpu_torch.cli\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'wgsassign_tpu'))\n"
+        "assert not bad, f'loaded: {bad}'\n"
         "print('NO_JAX_OK')\n"
     )
     env = dict(os.environ)

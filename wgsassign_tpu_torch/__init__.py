@@ -7,11 +7,12 @@ same analyses with PyTorch tensors and hand-written CUDA kernels for Hopper
 
 Ported: every analysis of the JAX CLI on one process and one GPU
 (:mod:`wgsassign_tpu_torch.cli`); several GPUs are not ported yet.
-Host-side parsing and output writing are imported from the JAX-free modules
-of ``wgsassign_tpu`` (``io/*``, ``_native``, ``obs.profiling``,
-``obs.log``, the argparse ``parser``); nothing here imports ``jax``.
+Host-side parsing and output writing (``io/*``, ``_native``, ``obs/*``, the
+argparse ``parser``) are this package's own copies of the JAX package's
+modules, under the same names; nothing here imports ``jax`` or
+``wgsassign_tpu``.
 """
 
-from wgsassign_tpu.version import __version__
+from wgsassign_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

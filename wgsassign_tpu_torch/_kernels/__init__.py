@@ -54,14 +54,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "wg_probe": (_I, _P, _P, _I, _P),
-    "wg_em_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_em_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_loo_chunk": (_I, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _P),
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_zloo_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_sites_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P),
+}
+# wg_<kernel>_occupancy(device, block width, smem bytes, fast_math)
+_OCCUPANCY_SIGNATURES = {
+    "wg_em_chunk_occupancy": (_I, _I, _I, _I),
+    "wg_loo_chunk_occupancy": (_I, _I, _I, _I),
 }
 
 
@@ -139,6 +144,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    for name, argtypes in _OCCUPANCY_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     lib.wg_error_string.argtypes = [ctypes.c_int]
     lib.wg_error_string.restype = ctypes.c_char_p
     return lib
@@ -154,6 +163,21 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = lib.wg_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
     launches[name] += 1
+
+
+def occupancy(name: str, device: torch.device, width: int, smem_bytes: int,
+              fast_math: bool = True) -> int:
+    """Resident blocks per SM that the CUDA runtime reports
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for kernel ``name``
+    (``em_chunk``: ``width`` sites a block; ``loo_chunk``: ``width`` warps a
+    block) with ``smem_bytes`` of dynamic shared memory."""
+    lib = library()
+    blocks = getattr(lib, f"wg_{name}_occupancy")(
+        device.index or 0, width, smem_bytes, int(bool(fast_math)))
+    if blocks < 0:
+        msg = lib.wg_error_string(-blocks).decode()
+        raise RuntimeError(f"occupancy query for {name} failed: {msg}")
+    return blocks
 
 
 def probe(device: torch.device) -> None:

@@ -1,10 +1,11 @@
 """Command-line entry point of the port: every analysis of
 ``wgsassign_tpu.cli`` on one process and one GPU.
 
-Takes the reference's flags (the argparse ``parser`` of
-``wgsassign_tpu.cli``), runs its sections in the same order -- reference AF,
-``--ne_obs``, ``--loo``; ``--get_pop_like``; the z-scores; the mixture --
-and writes the same files through ``wgsassign_tpu.io.writers``: ``.args``,
+Takes the reference's flags (``parser`` below, a copy of the argparse
+parser of ``wgsassign_tpu.cli``), runs its sections in the same order --
+reference AF, ``--ne_obs``, ``--loo``; ``--get_pop_like``; the z-scores; the
+mixture -- and writes the same files through
+``wgsassign_tpu_torch.io.writers``: ``.args``,
 ``.pop_af.npy``, ``.pop_names.txt``, ``.fisher_obs.npy``, ``.ne_obs.npy``,
 ``.ne_obs.txt``, ``.ne_ind.txt``, ``.pop_like_LOO[_downsampled].tsv`` and,
 with ``--partition_sites``, the partition ``.tsv.gz``; ``.pop_like.txt``;
@@ -23,11 +24,137 @@ kernels' plain PyTorch twins, for tests.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
-from wgsassign_tpu.cli import parser
-from wgsassign_tpu.version import __version__
+from wgsassign_tpu_torch.version import __version__
+
+# The flags, defaults and help strings of wgsassign_tpu/cli.py, copied: the
+# two command lines and their ``.args`` logs stay interchangeable.
+parser = argparse.ArgumentParser(prog="WGSassign")
+parser.add_argument("-b", "--beagle", metavar="FILE",
+    help="Filepath to genotype likelihoods in gzipped Beagle format from ANGSD")
+parser.add_argument("-t", "--threads", metavar="INT", type=int, default=0,
+    help="Number of host threads for the Beagle parser (default 0 = all "
+         "cores); device parallelism uses the mesh")
+parser.add_argument("-o", "--out", metavar="OUTPUT", default="wgsassign",
+    help="Prefix for output files")
+parser.add_argument("--maf_iter", metavar="INT", type=int, default=200,
+    help="Maximum iterations for minor allele frequencies estimation - EM (200)")
+parser.add_argument("--maf_tole", metavar="FLOAT", type=float, default=1e-4,
+    help="Tolerance for minor allele frequencies estimation update - EM (1e-4)")
+
+# Reference population allele frequencies
+parser.add_argument("--pop_af_IDs", metavar="FILE",
+    help="Filepath to individual IDs and populations for beagle")
+parser.add_argument("--get_reference_af", action="store_true",
+    help="Estimate allele frequencies for reference populations")
+parser.add_argument("--pop_names", metavar="FILE",
+    help="Filepath to population names of allele frequency file")
+
+# Effective sample size / Fisher info
+parser.add_argument("--ne_obs", action="store_true",
+    help="Estimate population and individuals effective sample sizes")
+
+# Leave-one-out
+parser.add_argument("--loo", action="store_true",
+    help="Perform leave-one-out cross validation")
+parser.add_argument("--loo_downsampled_beagle", metavar="FILE",
+    help="Optional Beagle file of downsampled genotype likelihoods to use for "
+         "LOO assignment")
+
+# Assignment likelihoods
+parser.add_argument("--pop_af_file", metavar="FILE",
+    help="Filepath to reference population allele frequencies")
+parser.add_argument("--get_pop_like", action="store_true",
+    help="Estimate log likelihood of individual assignment to each reference population")
+parser.add_argument("--partition_sites", type=int, metavar="INT", default=1,
+    help="Optional: partition sites into INT subsets (by modulo) and report "
+         "assignment log-likelihoods for each subset")
+
+# Z-score
+parser.add_argument("--get_assignment_z_score", action="store_true",
+    help="Calculate z-score for individuals (assigned-population AF mode)")
+parser.add_argument("--get_reference_z_score", action="store_true",
+    help="Calculate z-score for individuals (own-population LOO AF mode)")
+parser.add_argument("--ind_ad_file", metavar="FILE",
+    help="Filepath to individual allele depths, tab-delimited, .txt or .gz")
+parser.add_argument("--allele_count_threshold", metavar="INT", type=int,
+    help="Minimum number of loci needed to keep a specific allele count combination")
+parser.add_argument("--single_read_threshold", action="store_true",
+    help="Use only loci with a single read")
+parser.add_argument("--ind_start", metavar="INT", type=int,
+    help="Start analysis at this individual index (0-indexed)")
+parser.add_argument("--ind_end", metavar="INT", type=int,
+    help="End analysis at this individual index (exclusive upper bound)")
+parser.add_argument("--zscore_error_rate", metavar="FLOAT", type=float,
+    default=0.01,
+    help="Sequencing error rate for the z-score read-probability tables "
+         "(the reference hard-codes 0.01, WGSassign.py:350,430)")
+
+# Mixture proportions
+parser.add_argument("--pop_like", metavar="FILE",
+    help="Filepath to population assignment log likelihood file")
+parser.add_argument("--pop_like_IDs", metavar="FILE",
+    help="Filepath to IDs for population assignment log likelihood file")
+parser.add_argument("--get_em_mix", action="store_true",
+    help="Estimate mixture proportions with EM algorithm")
+parser.add_argument("--get_mcmc_mix", action="store_true",
+    help="Estimate mixture proportions with MCMC algorithm")
+parser.add_argument("--mixture_iter", metavar="INT", type=int, default=200,
+    help="Maximum iterations mixture estimation - EM (200)")
+
+# Engine options (not in the reference)
+parser.add_argument("--devices", metavar="INT", type=int, default=None,
+    help="Use only the first INT devices of the mesh (default: all)")
+parser.add_argument("--use_pallas", action="store_true",
+    help="Force the fused Pallas kernels on")
+parser.add_argument("--fast_em", action="store_true",
+    help="(default, kept for compatibility) Algebraically-reduced EM "
+         "update in the fused kernels (~1.2x measured on v5e); "
+         "bit-identical to the canonical op order for normal-range "
+         "operands (empirically verified)")
+parser.add_argument("--no_fast_em", action="store_true",
+    help="Use the canonical (textbook) EM op order in the fused kernels — "
+         "a debugging kill switch; the two forms are bit-identical for "
+         "normal-range operands")
+parser.add_argument("--no_pallas", action="store_true",
+    help="Force the fused Pallas kernels off (pure-XLA path)")
+parser.add_argument("--profile", metavar="DIR",
+    help="Write a jax profiler trace of the run to DIR")
+parser.add_argument("--stable_mix", action="store_true",
+    help="Log-sum-exp mixture EM (immune to exp underflow)")
+parser.add_argument("--loo_clean_af", action="store_true",
+    help="LOO: evaluate foreign populations with full-data AF instead of "
+         "reproducing the reference's in-place mutation order dependence")
+parser.add_argument("--mcmc_seed", metavar="INT", type=int, default=None,
+    help="Random seed for --get_mcmc_mix")
+parser.add_argument("--mcmc_last_draw", action="store_true",
+    help="MCMC: report the last draw instead of the posterior mean")
+parser.add_argument("--f32_sums", action="store_true",
+    help="Accumulate site-axis log-likelihood sums in float32 (single fused "
+         "reduction) instead of the reference-matching blocked-f64 scheme")
+parser.add_argument("--stream_ingest", metavar="ROWS", type=int, default=None,
+    help="Stream the Beagle file to device in site blocks of ROWS rows "
+         "(0 = auto-size ~256 MiB blocks) instead of materializing the full "
+         "GL matrix on host — M is then bounded by device HBM, not host RAM. "
+         "Works with every analysis: z-scores gather per-individual GL "
+         "columns back from the device cohort, and the downsampled-LOO "
+         "site intersection streams through a site-name scan pass. "
+         "Composes with multi-host runs: each process streams only its own "
+         "row window into its local devices")
+parser.add_argument("--em_checkpoint", action="store_true",
+    help="Periodically checkpoint EM state next to the output prefix and "
+         "resume from it (fused-kernel path)")
+parser.add_argument("--debug_checks", action="store_true",
+    help="Enable NaN debugging (jax_debug_nans) plus checkify sanitizers "
+         "on the likelihood paths (catches malformed GL triples that would "
+         "silently produce -inf log-likelihoods)")
+parser.add_argument("--log_level", metavar="LEVEL", default=None,
+    help="Structured-log level for the wgsassign_tpu logger (default WARNING; "
+         "also via WGSA_LOG_LEVEL)")
+
 
 # flag -> why it does not run here (ROADMAP.md, "Modules to port")
 _NOT_PORTED = {
@@ -66,9 +193,9 @@ def main(argv=None, device=None):
 
     import torch
 
-    from wgsassign_tpu.io import writers
-    from wgsassign_tpu.obs.log import setup_logging
-    from wgsassign_tpu.obs.profiling import RunTimer
+    from wgsassign_tpu_torch.io import writers
+    from wgsassign_tpu_torch.obs.log import setup_logging
+    from wgsassign_tpu_torch.obs.profiling import RunTimer
     from wgsassign_tpu_torch.obs.profiling import maybe_profile
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
@@ -89,7 +216,7 @@ def main(argv=None, device=None):
 
 
 def _dispatch(args, runtime, timer, writers):
-    from wgsassign_tpu.io.beagle import filter_sites_to_common, read_beagle
+    from wgsassign_tpu_torch.io.beagle import filter_sites_to_common, read_beagle
     from wgsassign_tpu_torch.models.common import to_device
     from wgsassign_tpu_torch.parallel.runtime import synchronize
 
@@ -157,7 +284,7 @@ def _stream_ingest(args, runtime, timer, n_threads):
     if args.loo_downsampled_beagle:
         # the downsampled-LOO site intersection from one hash-scan pass per
         # file (8 bytes per site on the host), then masked streaming
-        from wgsassign_tpu.io.beagle import (
+        from wgsassign_tpu_torch.io.beagle import (
             scan_header_samples,
             scan_site_hashes,
             site_intersection_masks_hashed,
@@ -204,7 +331,7 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
                   timer, writers):
     """``--get_reference_af``, then ``--ne_obs`` and ``--loo`` when
     asked."""
-    from wgsassign_tpu.io.ids import read_ids
+    from wgsassign_tpu_torch.io.ids import read_ids
     from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
 
     print("Parsing reference population ID file.")
@@ -330,8 +457,8 @@ def _z_scores(args, beagle, cohort, timer, writers):
     """``--get_reference_z_score`` and/or ``--get_assignment_z_score``."""
     import numpy as np
 
-    from wgsassign_tpu.io.ad import read_allele_depths
-    from wgsassign_tpu.io.ids import read_ids, read_pop_names
+    from wgsassign_tpu_torch.io.ad import read_allele_depths
+    from wgsassign_tpu_torch.io.ids import read_ids, read_pop_names
 
     if beagle is None:
         raise ValueError("z-scores need the --beagle file")
@@ -401,7 +528,7 @@ def _mixture(args, timer, writers):
     numpy; needs no Beagle file and touches no device data)."""
     import numpy as np
 
-    from wgsassign_tpu.io.ids import read_ids
+    from wgsassign_tpu_torch.io.ids import read_ids
     from wgsassign_tpu_torch.models.mixture import (
         em_mixture,
         format_mixture_output,

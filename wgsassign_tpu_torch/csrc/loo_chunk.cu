@@ -6,100 +6,237 @@
 //     f_j <- clip(sum_{i != j, i < n_real} w(g_i, f_j) / (n_real - 1))
 // and the kernel emits every iteration's squared update per problem.
 //
-// What bounds it on an H100: per site and iteration each of the P problems
-// sums n_real - 1 weights (~12 float ops and an IEEE divide each), so the
-// work is P * n_real per site against 8 n_real bytes of GLs read once per
-// chunk: compute-bound.  The member panel tile takes 8 * n_real * S bytes of
-// shared memory; the smallest tile (S = 32 sites) caps a population at
-// max_loo_members(T) members (807 at T = 8), where the wrapper raises.
+// What bounds it on an H100: operations.  Per site and iteration each of the
+// P problems sums n_real - 1 weights (15 float operations counting the
+// divide as one) against 8 n_real bytes of GLs read once per chunk.  The
+// rounding contract (common.cuh: no fused multiply-add, IEEE divide) makes a
+// weight ~23 issue slots, the divide alone ~10, so the float32 pipe is the
+// limit long before memory.
 //
-// Design: one thread per site; a block stages its [n_real, S] tile of the
-// site-minor member panels in shared memory ONCE and loops over all P
-// problems inside the block (the TPU kernel put problems on the grid and
-// re-fetched the tile per problem, a Mosaic limit).  Each problem's f stays
-// in a register for its T iterations.  Members i == j and i >= n_real are
-// skipped, the same mask as the TPU kernel; members are summed in ascending
-// order, as the plain twin does.  Problems whose limit is 0 (converged or
-// padding rows) are skipped and copied through.  The per-iteration squared
-// updates are reduced per warp with shuffles and per block in a fixed order
-// into sq_part[block, T, P]; no float atomics.
+// Design, and what each part is for:
+// - A block owns LOO_SITES = 32 consecutive sites and stages their
+//   [n_real, 32] tile of both member panels in shared memory once, with
+//   16-byte cp.async where the rows are 16-byte aligned (no registers held
+//   across the copy).  g2 = 1 - g0 - g1 is rebuilt in registers once per
+//   member per pass (two adds shared by JB weights) rather than kept as a
+//   third plane: that plane would cost half as much shared memory again and
+//   lower the member bound for one shared load saved per JB weights.
+// - A lane is a site; a warp is a tile of JB consecutive problems, and the
+//   block's warps take the problem tiles round-robin.  So a thread carries
+//   JB problems through the member loop at once: each (g0, g1, g2) read
+//   feeds JB weights, and JB independent divide chains hide each other's
+//   latency.  Every problem belongs to one warp only, so its squared update
+//   needs one shuffle reduction and no scratch in shared memory.
+// - The shared tile is 8 n_real bytes a site whatever the block's width, and
+//   it is shared by all the block's warps: at n_real = 36 a block takes
+//   9.2 KB, so the registers, not shared memory, set the occupancy: 36
+//   warps (the one-thread-per-site kernel this replaces could hold 24).
+//   The tile must fit the 227 KB: at most 908 members, where the wrapper
+//   raises.
+// - The member loop is split at the tile's own members: outside
+//   [j0, j0 + JB) no problem of the tile is left out, so the loop has no
+//   test; inside, the left-out member adds an exact 0.0f by a select.
+//   Members are summed in ascending order, as the plain twin does.
+// - All limits in a tile are warp-uniform.  While every problem of the tile
+//   is within its limit the JB-wide loop runs; a tile with some problems
+//   finished (a replay) runs the others one by one, and a finished tile
+//   only writes zeros.  Nothing is computed for a problem past its limit.
+// - Each warp's lane 0 writes its per-iteration sums into
+//   sq_part[block, T, P]; the caller sums the blocks in one fixed order.  No
+//   float atomics: the convergence decision reads these sums.
+// - No persistent grid: 12 blocks of 3 warps are resident on an SM at
+//   n_real = 36 (56 registers a thread), so one block's staging (9 KB)
+//   hides behind the others' arithmetic (~10^6 issue slots a block)
+//   without a second buffer.
 #include "common.cuh"
 
+#ifndef WG_LOO_JB
+#define WG_LOO_JB 4
+#endif
+
+namespace {
+
+constexpr int LOO_SITES = 32;  // ops/loo_chunk.py::LOO_SITES
+constexpr int JB = WG_LOO_JB;  // ops/loo_chunk.py::LOO_PROBLEM_TILE
+
+// Members [i0, i1) added to NB problems' sums (omf[q] = 1 - f[q]).  MASKED:
+// a problem's own member adds 0.0f instead of its weight.
+template <bool FAST, int NB, bool MASKED>
+__device__ __forceinline__ void loo_members(
+    const float* __restrict__ sg0, const float* __restrict__ sg1, int i0,
+    int i1, const int (&j)[NB], const float (&f)[NB], float (&acc)[NB]) {
+  float omf[NB];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) omf[q] = 1.0f - f[q];
+  const float* pa = sg0 + i0 * LOO_SITES;
+  const float* pb = sg1 + i0 * LOO_SITES;
+#pragma unroll 2
+  for (int i = i0; i < i1; ++i, pa += LOO_SITES, pb += LOO_SITES) {
+    const float a = *pa;
+    const float b = *pb;
+    const float c = 1.0f - a - b;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const float w = em_w<FAST>(a, b, c, f[q], omf[q]);
+      acc[q] += (MASKED && i == j[q]) ? 0.0f : w;
+    }
+  }
+}
+
 template <bool FAST>
-__global__ void loo_chunk_kernel(
+__global__ void __launch_bounds__(256) loo_chunk_kernel(
     const float* __restrict__ g0p, const float* __restrict__ g1p,
     const float* __restrict__ ft_in, float* __restrict__ ft_out,
-    const float* __restrict__ limits, float* __restrict__ sq_part,
-    int P, int M, int n_real, int T) {
-  extern __shared__ float smem[];
-  const int S = blockDim.x;
+    const float* __restrict__ limits, float* __restrict__ sq_part, int P,
+    int M, int n_real, int T, int aligned) {
+  extern __shared__ float4 smem4[];
+  float* sg0 = reinterpret_cast<float*>(smem4);  // [n_real][32]
+  float* sg1 = sg0 + n_real * LOO_SITES;         // [n_real][32]
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = S >> 5;
-  const int TP = T * P;
-
-  float* sg0 = smem;                // [n_real][S]
-  float* sg1 = sg0 + n_real * S;    // [n_real][S]
-  float* ssq = sg1 + n_real * S;    // [n_warps][T * P]
-
-  const long long s = (long long)blockIdx.x * S + tid;
+  const int n_warps = blockDim.x >> 5;
+  const long long s0 = (long long)blockIdx.x * LOO_SITES;
+  const long long s = s0 + lane;
   const bool real = s < M;
 
-  // consecutive threads read consecutive sites of each member row
-  for (int i = 0; i < n_real; ++i) {
-    sg0[i * S + tid] = real ? g0p[(long long)i * M + s] : 1.0f;
-    sg1[i * S + tid] = real ? g1p[(long long)i * M + s] : 0.0f;
+  if (aligned && s0 + LOO_SITES <= M) {
+    // a row of the tile is 128 bytes: eight 16-byte copies per member and
+    // plane, consecutive threads on consecutive chunks
+    const int per_plane = n_real * (LOO_SITES / 4);
+    for (int e = tid; e < 2 * per_plane; e += blockDim.x) {
+      const int plane = e >= per_plane;
+      const int ee = e - plane * per_plane;
+      const int i = ee >> 3;
+      const int c4 = (ee & 7) * 4;
+      const float* src = (plane ? g1p : g0p) + (long long)i * M + s0 + c4;
+      cp_async_16((plane ? sg1 : sg0) + i * LOO_SITES + c4, src);
+    }
+    cp_async_wait_all();
+  } else {
+    // the ragged last tile, or rows that are not 16-byte aligned; sites
+    // past M hold the padding pattern (1, 0), whose weight is exactly 0
+    for (int i = warp; i < n_real; i += n_warps) {
+      sg0[i * LOO_SITES + lane] = real ? g0p[(long long)i * M + s] : 1.0f;
+      sg1[i * LOO_SITES + lane] = real ? g1p[(long long)i * M + s] : 0.0f;
+    }
   }
   __syncthreads();
+  sg0 += lane;
+  sg1 += lane;
 
   const float inv = 1.0f / ((float)n_real - 1.0f);
-  for (int j = 0; j < P; ++j) {
-    const float lim = __ldg(limits + j);
-    float f = real ? ft_in[(long long)j * M + s] : WG_EM_LO;
-    for (int t = 0; t < T; ++t) {
-      float d = 0.0f;
-      if (lim > (float)t) {  // uniform across the block
-        float acc = 0.0f;
-        for (int i = 0; i < n_real; ++i) {
-          if (i == j) continue;
-          const float a = sg0[i * S + tid];
-          const float b = sg1[i * S + tid];
-          acc += em_w<FAST>(a, b, 1.0f - a - b, f);
-        }
-        const float f_new = em_clip(acc * inv);
-        d = real ? f_new - f : 0.0f;
-        f = f_new;
-      }
-      const float v = warp_sum(d * d);
-      if (lane == 0) ssq[warp * TP + t * P + j] = v;
+  const int n_tiles = (P + JB - 1) / JB;
+  for (int tile = warp; tile < n_tiles; tile += n_warps) {
+    const int j0 = tile * JB;
+    int j[JB];
+    float f[JB], lim[JB];
+#pragma unroll
+    for (int q = 0; q < JB; ++q) {
+      j[q] = j0 + q;
+      const bool valid = j[q] < P;
+      lim[q] = valid ? __ldg(limits + j[q]) : 0.0f;
+      f[q] = (valid && real) ? ft_in[(long long)j[q] * M + s] : WG_EM_LO;
     }
-    if (real) ft_out[(long long)j * M + s] = f;
-  }
-  __syncthreads();
-  for (int e = tid; e < TP; e += S) {
-    float v = 0.0f;
-    for (int w = 0; w < n_warps; ++w) v += ssq[w * TP + e];
-    sq_part[(long long)blockIdx.x * TP + e] = v;
+    // the tile's own members, clamped to the real ones
+    const int m0 = min(j0, n_real);
+    const int m1 = min(j0 + JB, n_real);
+
+    for (int t = 0; t < T; ++t) {
+      const float tf = (float)t;
+      int n_act = 0;
+#pragma unroll
+      for (int q = 0; q < JB; ++q) n_act += lim[q] > tf;
+      float d[JB];
+#pragma unroll
+      for (int q = 0; q < JB; ++q) d[q] = 0.0f;
+
+      if (n_act == JB) {
+        float acc[JB];
+#pragma unroll
+        for (int q = 0; q < JB; ++q) acc[q] = 0.0f;
+        loo_members<FAST, JB, false>(sg0, sg1, 0, m0, j, f, acc);
+        loo_members<FAST, JB, true>(sg0, sg1, m0, m1, j, f, acc);
+        loo_members<FAST, JB, false>(sg0, sg1, m1, n_real, j, f, acc);
+#pragma unroll
+        for (int q = 0; q < JB; ++q) {
+          const float f_new = em_clip(acc[q] * inv);
+          d[q] = real ? f_new - f[q] : 0.0f;
+          f[q] = f_new;
+        }
+      } else if (n_act > 0) {
+#pragma unroll
+        for (int q = 0; q < JB; ++q) {
+          if (!(lim[q] > tf)) continue;
+          const int j1[1] = {j[q]};
+          const float f1[1] = {f[q]};
+          float acc1[1] = {0.0f};
+          const int own = min(j[q], n_real);
+          loo_members<FAST, 1, false>(sg0, sg1, 0, own, j1, f1, acc1);
+          loo_members<FAST, 1, false>(sg0, sg1, min(own + 1, n_real), n_real,
+                                      j1, f1, acc1);
+          const float f_new = em_clip(acc1[0] * inv);
+          d[q] = real ? f_new - f[q] : 0.0f;
+          f[q] = f_new;
+        }
+      }
+
+#pragma unroll
+      for (int q = 0; q < JB; ++q) {
+        if (j[q] >= P) continue;
+        const float v = (lim[q] > tf) ? warp_sum(d[q] * d[q]) : 0.0f;
+        if (lane == 0) {
+          sq_part[((long long)blockIdx.x * T + t) * P + j[q]] = v;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < JB; ++q) {
+      if (j[q] < P && real) ft_out[(long long)j[q] * M + s] = f[q];
+    }
   }
 }
+
+using LooKernel = void (*)(const float*, const float*, const float*, float*,
+                           const float*, float*, int, int, int, int, int);
+
+LooKernel loo_kernel(int fast_math) {
+  return fast_math ? loo_chunk_kernel<true> : loo_chunk_kernel<false>;
+}
+
+}  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 WG_EXPORT int wg_loo_chunk(int device, const float* g0p, const float* g1p,
                            const float* ft_in, float* ft_out,
                            const float* limits, float* sq_part, int P, int M,
-                           int n_real, int T, int block_sites, int smem_bytes,
-                           int fast_math, void* stream) {
+                           int n_real, int T, int warps, int smem_bytes,
+                           int aligned, int fast_math, void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  void (*kern)(const float*, const float*, const float*, float*,
-               const float*, float*, int, int, int, int) =
-      fast_math ? loo_chunk_kernel<true> : loo_chunk_kernel<false>;
+  LooKernel kern = loo_kernel(fast_math);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (M + block_sites - 1) / block_sites;
-  kern<<<blocks, block_sites, smem_bytes, (cudaStream_t)stream>>>(
-      g0p, g1p, ft_in, ft_out, limits, sq_part, P, M, n_real, T);
+  const int blocks = (M + LOO_SITES - 1) / LOO_SITES;
+  kern<<<blocks, 32 * warps, smem_bytes, (cudaStream_t)stream>>>(
+      g0p, g1p, ft_in, ft_out, limits, sq_part, P, M, n_real, T, aligned);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM the runtime reports for this launch shape, or the
+// negated CUDA error code.
+WG_EXPORT int wg_loo_chunk_occupancy(int device, int warps, int smem_bytes,
+                                     int fast_math) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  LooKernel kern = loo_kernel(fast_math);
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      32 * warps, smem_bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }

@@ -11,7 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-from wgsassign_tpu.io.beagle import BeagleData
+from wgsassign_tpu_torch.io.beagle import BeagleData
 from wgsassign_tpu_torch.models.common import (
     DeviceCohort,
     from_jax_arrays,

@@ -45,7 +45,7 @@ class DeviceCohort:
 
 
 def to_device(beagle, runtime: Runtime, site_multiple: int = 1) -> DeviceCohort:
-    """Pad a parsed :class:`wgsassign_tpu.io.beagle.BeagleData` to a
+    """Pad a parsed :class:`wgsassign_tpu_torch.io.beagle.BeagleData` to a
     multiple of ``site_multiple`` sites (the ``--partition_sites`` count)
     and copy it to the device, one host-to-device copy per GL plane."""
     g0_h = pad_sites(np.ascontiguousarray(beagle.gl[:, :, 0]), site_multiple,
@@ -169,8 +169,8 @@ def stream_to_device(
 
     ``g0``/``g1`` ``[M_pad, N]`` are allocated on the device filled with
     the padding pattern, and each block parsed by
-    :func:`wgsassign_tpu.io.stream.open_block_iterator` is copied into its
-    rows (see :class:`_Uploader`).  Peak host memory is O(block).  The
+    :func:`wgsassign_tpu_torch.io.stream.open_block_iterator` is copied into
+    its rows (see :class:`_Uploader`).  Peak host memory is O(block).  The
     cohort is bit-identical to ``to_device(read_beagle(path), runtime,
     site_multiple)`` (with ``keep_mask``: to the in-memory site
     intersection).
@@ -181,12 +181,12 @@ def stream_to_device(
     cohort then covers only the kept rows, in order.
 
     Returns ``(cohort, meta, site_names)``: ``meta`` is a
-    :class:`wgsassign_tpu.io.stream.BeagleStreamMeta`, ``site_names`` None
-    unless ``collect_site_names`` (an O(M) host list, for tests and small
+    :class:`wgsassign_tpu_torch.io.stream.BeagleStreamMeta`, ``site_names``
+    None unless ``collect_site_names`` (an O(M) host list, for tests and small
     runs).
     """
-    from wgsassign_tpu.io.beagle import beagle_dims
-    from wgsassign_tpu.io.stream import (
+    from wgsassign_tpu_torch.io.beagle import beagle_dims
+    from wgsassign_tpu_torch.io.stream import (
         BeagleStreamMeta,
         open_block_iterator,
         prefetch,

@@ -32,9 +32,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from wgsassign_tpu.io.beagle import BeagleData
-from wgsassign_tpu.io.ids import PopulationMap
-from wgsassign_tpu.obs.checkpoint import save_npz_atomic
+from wgsassign_tpu_torch.io.beagle import BeagleData
+from wgsassign_tpu_torch.io.ids import PopulationMap
+from wgsassign_tpu_torch.obs.checkpoint import save_npz_atomic
 from wgsassign_tpu_torch.models.common import DeviceCohort, to_device
 from wgsassign_tpu_torch.obs.checkpoint import EMCheckpoint
 from wgsassign_tpu_torch.ops.fused_em import em_maf_loo_group_fused

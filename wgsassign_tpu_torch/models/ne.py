@@ -13,8 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from wgsassign_tpu.io.beagle import BeagleData
-from wgsassign_tpu.io.ids import PopulationMap
+from wgsassign_tpu_torch.io.beagle import BeagleData
+from wgsassign_tpu_torch.io.ids import PopulationMap
 from wgsassign_tpu_torch.models.common import (
     DeviceCohort,
     from_jax_arrays,

@@ -15,8 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from wgsassign_tpu.io.beagle import BeagleData
-from wgsassign_tpu.io.ids import PopulationMap
+from wgsassign_tpu_torch.io.beagle import BeagleData
+from wgsassign_tpu_torch.io.ids import PopulationMap
 from wgsassign_tpu_torch.models.common import DeviceCohort, to_device
 from wgsassign_tpu_torch.obs.checkpoint import EMCheckpoint
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk

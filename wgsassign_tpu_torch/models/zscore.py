@@ -39,8 +39,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from wgsassign_tpu.io.beagle import BeagleData
-from wgsassign_tpu.io.ids import PopulationMap
+from wgsassign_tpu_torch.io.beagle import BeagleData
+from wgsassign_tpu_torch.io.ids import PopulationMap
 from wgsassign_tpu_torch.models.common import DeviceCohort, pad_af_to, to_device
 from wgsassign_tpu_torch.models.loo import _member_panels
 from wgsassign_tpu_torch.ops.fused_em import (
@@ -403,7 +403,7 @@ def _run_blocks(
     """Shared batched driver.  ``af_block_fn(block, fill)`` returns a
     device ``[B, S]`` AF panel for the block's kept sites and the ``[B]``
     EM iteration counts behind it.  With a ``timer``
-    (:class:`wgsassign_tpu.obs.profiling.RunTimer`) the host tables, the
+    (:class:`wgsassign_tpu_torch.obs.profiling.RunTimer`) the host tables, the
     AF groups and the z-sums blocks are timed as the phases
     ``zscore_tables``, ``zscore_af`` and ``zscore_sums``."""
     dev = cohort.runtime.device

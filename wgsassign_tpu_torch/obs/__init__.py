@@ -1,1 +1,1 @@
-"""Checkpoints (timers and logging come from ``wgsassign_tpu.obs``)."""
+"""Logging, timers, profiler traces and checkpoints."""

@@ -17,7 +17,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from wgsassign_tpu.obs.checkpoint import save_npz_atomic
+
+def save_npz_atomic(path: str, **arrays) -> None:
+    """Write an npz atomically (temp file + rename)."""
+    tmp = path + ".tmp"
+    np.savez(tmp, **arrays)
+    # np.savez appends .npz when missing
+    src = tmp if tmp.endswith(".npz") else tmp + ".npz"
+    os.replace(src, path)
 
 
 class EMCheckpoint:

@@ -4,13 +4,40 @@ Counterpart of ``wgsassign_tpu/obs/profiling.py::maybe_profile``, which
 wraps the run in ``jax.profiler.trace``.  Records host-side torch ops, plus
 CUDA kernels and copies when the runtime's device is a GPU, and writes one
 Chrome trace (``<host>_<pid>.<ns>.pt.trace.json``, readable by Perfetto,
-``chrome://tracing`` and TensorBoard's profiler plugin) into ``DIR``.  The
-per-phase wall clock stays with ``wgsassign_tpu.obs.profiling.RunTimer``.
+``chrome://tracing`` and TensorBoard's profiler plugin) into ``DIR``.  :class:`RunTimer` is the per-phase wall clock behind the run
+summary, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
+from collections import defaultdict
+
+
+class RunTimer:
+    """Accumulating phase timer; prints a run summary."""
+
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] += dt
+            self.counts[name] += 1
+
+    def report(self):
+        if not self.totals:
+            return
+        print("\n-- timing summary --")
+        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            print(f"  {name:<14s} {total:8.3f}s  ({self.counts[name]}x)")
 
 
 @contextlib.contextmanager

@@ -22,35 +22,50 @@ from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 
 _F32 = torch.float32
 
-# Site tiles tried, largest first: the block stages an [n_real, S] tile of
-# both GL panels in shared memory.
-LOO_BLOCK_SITES = (128, 64, 32)
+# The kernel's tile (csrc/loo_chunk.cu): a block stages the [n_real, 32] tile
+# of both GL panels in shared memory; a warp carries LOO_PROBLEM_TILE
+# problems through the member loop at once, and the block's warps take the
+# problem tiles round-robin.
+LOO_SITES = 32
+LOO_PROBLEM_TILE = 4
+LOO_MAX_WARPS = 8
 
 
-def _smem_bytes(n_real: int, p: int, t: int, block_sites: int) -> int:
-    return 4 * (2 * n_real * block_sites + (block_sites // 32) * t * p)
+def _smem_bytes(n_real: int) -> int:
+    return 4 * 2 * n_real * LOO_SITES
 
 
-def max_loo_members(t: int) -> int:
-    """Largest population (P = n_real members) whose member tile fits the
-    smallest site tile at chunk length ``t``: 807 at t = 8."""
-    s = LOO_BLOCK_SITES[-1]
-    return _kernels.SMEM_LIMIT // (4 * (2 * s + (s // 32) * t))
+def max_loo_members() -> int:
+    """Largest population whose [n_real, 32] member tile fits in shared
+    memory: 908, whatever the chunk length."""
+    return _kernels.SMEM_LIMIT // (4 * 2 * LOO_SITES)
 
 
-def loo_chunk_geometry(n_real: int, p: int, t: int) -> tuple:
-    """``(block_sites, smem_bytes)``: the widest site tile whose member
-    panel fits in shared memory.  Raises ValueError above the bound."""
-    for s in LOO_BLOCK_SITES:
-        smem = _smem_bytes(n_real, p, t, s)
-        if smem <= _kernels.SMEM_LIMIT:
-            return s, smem
-    raise ValueError(
-        f"loo_chunk: a population of {n_real} members exceeds the kernel's "
-        f"bound of {max_loo_members(t)} members at chunk length {t} (the "
-        f"member tile of {LOO_BLOCK_SITES[-1]} sites must fit in "
-        f"{_kernels.SMEM_LIMIT} bytes of shared memory)"
-    )
+def loo_chunk_geometry(n_real: int) -> tuple:
+    """``(warps, smem_bytes)`` of a block.  The real problems make
+    ``ceil(n_real / LOO_PROBLEM_TILE)`` tiles, taken round-robin by the
+    block's warps.  The warp count (at most LOO_MAX_WARPS) is the one with
+    the best product of two estimates: the share of warp rounds that carry
+    a tile, and the share of 32 resident warps per SM that the shared
+    memory allows; the fewest warps on a tie (9 tiles: 3 warps, three rounds
+    each).  Raises ValueError above the member bound."""
+    smem = _smem_bytes(n_real)
+    if smem > _kernels.SMEM_LIMIT:
+        raise ValueError(
+            f"loo_chunk: a population of {n_real} members exceeds the "
+            f"kernel's bound of {max_loo_members()} members (the member tile "
+            f"of {LOO_SITES} sites must fit in {_kernels.SMEM_LIMIT} bytes "
+            "of shared memory)"
+        )
+    tiles = -(-n_real // LOO_PROBLEM_TILE)
+    # resident blocks per SM: 32 at most, 1 KB of shared memory reserved each
+    blocks = min(32, max(1, _kernels.SMEM_LIMIT // (smem + 1024)))
+
+    def score(w):
+        return (tiles / (-(-tiles // w) * w)) * min(1.0, w * blocks / 32)
+
+    warps = max(range(1, LOO_MAX_WARPS + 1), key=lambda w: (score(w), -w))
+    return warps, smem
 
 
 def loo_chunk_twin(g0p, g1p, ft, limits, n_real: int, T: int,
@@ -103,14 +118,17 @@ def loo_chunk(g0p, g1p, ft, limits, n_real: int, T: int,
     for name, t, shape in (("g0p", g0p, (p, m)), ("g1p", g1p, (p, m)),
                            ("ft", ft, (p, m)), ("limits", limits, (p,))):
         _kernels.check_operand(name, t, dev, _F32, shape)
-    block_sites, smem = loo_chunk_geometry(n_real, p, T)
-    n_blocks = -(-m // block_sites)
+    warps, smem = loo_chunk_geometry(n_real)
+    n_blocks = -(-m // LOO_SITES)
+    # 16-byte copies need every member row of the tile 16-byte aligned
+    aligned = (m % 4 == 0 and g0p.data_ptr() % 16 == 0
+               and g1p.data_ptr() % 16 == 0)
     ft_new = torch.empty_like(ft)
     sq_part = torch.empty((n_blocks, T, p), dtype=_F32, device=dev)
     _kernels.launch(
         "loo_chunk", dev, g0p.data_ptr(), g1p.data_ptr(), ft.data_ptr(),
         ft_new.data_ptr(), limits.data_ptr(), sq_part.data_ptr(), p, m,
-        n_real, T, block_sites, smem, int(bool(fast_math)),
+        n_real, T, warps, smem, int(aligned), int(bool(fast_math)),
     )
     sq = torch.sum(sq_part, dim=0, dtype=torch.float64).to(_F32)
     return ft_new, sq
