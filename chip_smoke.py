@@ -11,9 +11,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    started together), load, run the probe;
 3. every kernel against its plain PyTorch twin on the card, at the shapes
    its path gives it, with both times, the kernel's bound on this card and
-   its share of it, the occupancy the CUDA runtime reports for ``em_chunk``
-   and ``loo_chunk`` (and, for the two z-score kernels, the kernel's time
-   at the other EM structure's typical kept fraction);
+   its share of it and the occupancy the CUDA runtime reports (and, for
+   the two z-score kernels, the kernel's time at the other EM structure's
+   typical kept fraction, ``zloo_chunk`` with ascending left-out rows and
+   ``sites_chunk`` with half its problems at limit 0);
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
@@ -263,14 +264,23 @@ def zscore_kernels_vs_twins(dev, gen, results):
     a 64-individual AF group over 1M sites (kept fraction ~0.86, the
     loo-structured path's), sites at phase 6b's gathered block (64
     problems, 35 members, 524,288 kept-site slots).  Each is also timed at
-    the other structure's typical kept fraction."""
+    the other structure's typical kept fraction; zLOO with the ascending
+    left-out rows of the z-score path (phase 3's are a random permutation),
+    sites with every second problem finished (limit 0), as in the later
+    chunks of a run."""
     import torch
 
+    from wgsassign_tpu_torch import _kernels
     from wgsassign_tpu_torch.ops.sites_chunk import (
         sites_chunk,
+        sites_chunk_geometry,
         sites_chunk_twin,
     )
-    from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk, zloo_chunk_twin
+    from wgsassign_tpu_torch.ops.zloo_chunk import (
+        zloo_chunk,
+        zloo_chunk_geometry,
+        zloo_chunk_twin,
+    )
 
     m, n_real, b, T = M_MAIN, 36, 13, 8
     g0p, g1p = random_gls(n_real, m, gen, dev)
@@ -288,9 +298,13 @@ def zscore_kernels_vs_twins(dev, gen, results):
         errs.append(check_pair(f"zloo_chunk fast_math={fast}", f_k, f_t,
                                sq_k, sq_t))
     sw_low = (torch.rand((b, m), generator=gen, device=dev) < 0.27).float()
+    leave_up = torch.sort(leave).values
+    warps, smem = zloo_chunk_geometry(n_real, b)
     results["zloo_chunk"].update(
         **bound(m * (n_real - 1) * updates(lim, T) * OPS_PER_WEIGHT,
                 4 * (2 * n_real * m + 3 * b * m + T * b + 2 * b)),
+        occupancy="{}x{}warps".format(
+            _kernels.occupancy("zloo_chunk", dev, warps, smem), warps),
         max_abs_err=max(errs),
         ms=time_ms(lambda: zloo_chunk(*args), 5),
         plain_ms=time_ms(lambda: zloo_chunk_twin(*args), 2),
@@ -299,6 +313,10 @@ def zscore_kernels_vs_twins(dev, gen, results):
             5),
         shape=f"n_real={n_real} B={b} M={m} T={T} fill=0.86",
         other_shape="fill=0.27",
+        extra_ms=time_ms(
+            lambda: zloo_chunk(g0p, g1p, ft, sw, leave_up, lim, n_real, T),
+            5),
+        extra_shape="ascending_leave",
     )
     del g0p, g1p, ft, sw, sw_low, f_k, f_t
 
@@ -326,13 +344,22 @@ def zscore_kernels_vs_twins(dev, gen, results):
             errs.append(check_pair(f"sites_chunk fast_math={fast}", f_k, f_t,
                                    sq_k, sq_t))
         weights = s * float((mask.sum(dim=1) * lim.clamp(0, T)).sum())
+        lim_half = lim.clone()
+        lim_half[::2] = 0.0
+        warps, smem = sites_chunk_geometry(p)
         results["sites_chunk"].update(
             **bound(weights * OPS_PER_WEIGHT,
                     4 * (2 * b * p * s + 3 * b * s + b * p + T * b + 2 * b)),
+            occupancy="{}x{}warps".format(
+                _kernels.occupancy("sites_chunk", dev, warps, smem), warps),
             max_abs_err=max(errs),
             ms=time_ms(lambda: sites_chunk(*args), 5),
             plain_ms=time_ms(lambda: sites_chunk_twin(*args), 2),
             shape=f"B={b} P={p} S={s} T={T} fill=0.27",
+            extra_ms=time_ms(
+                lambda: sites_chunk(g0s, g1s, ft, mask, sw, lim_half, inv, T),
+                5),
+            extra_shape="half_at_limit_0",
         )
         del g0s, g1s, f_k, f_t
         torch.cuda.empty_cache()
@@ -821,6 +848,7 @@ def main():
     phase("3 kernels-vs-twins", t0, **{
         n: f"{r['ms']:.3f}ms/plain={r['plain_ms']:.3f}ms/err={r['max_abs_err']}"
            + (f"/{r['other_shape']}:{r['other_fill_ms']:.3f}ms"
+              f"/{r['extra_shape']}:{r['extra_ms']:.3f}ms"
               if "other_fill_ms" in r else "")
         for n, r in results.items()})
     for n, r in results.items():

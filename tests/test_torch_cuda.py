@@ -38,7 +38,11 @@ from wgsassign_tpu_torch.ops.loo_chunk import (
     loo_chunk_twin,
     max_loo_members,
 )
-from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk, sites_chunk_twin
+from wgsassign_tpu_torch.ops.sites_chunk import (
+    max_sites_members,
+    sites_chunk,
+    sites_chunk_twin,
+)
 from wgsassign_tpu_torch.ops.zloo_chunk import (
     max_zloo_members,
     zloo_chunk,
@@ -198,62 +202,185 @@ def test_fused_ems_kernel_vs_twin(cuda):
 
 
 @pytest.mark.parametrize("fast_math", [True, False])
-def test_zloo_chunk_kernel_matches_twin(cuda, fast_math):
-    g0p, g1p = _gls(16, 1000, 7)
-    g0p[11:], g1p[11:] = 1.0, 0.0
+@pytest.mark.parametrize("n_real,np_pad,m,leave,limits", [
+    (11, 16, 1000, [0, 4, 10, 7, 2], [6, 2, 0, 6, 1]),  # ragged last tile
+    (11, 16, 1000, [3, 3, 3, 3, 3, 3], [6] * 6),        # repeated
+    (11, 11, 996, [10, 8, 5, 1, 0], [6, 6, 3, 6, 6]),   # descending
+    (11, 16, 64, [7], [6]),                             # B = 1
+    (36, 36, 1001, list(range(13)), [6] * 13),  # rows not 16-byte aligned
+    (36, 40, 70, list(range(0, 36, 3)), [6, 0, 6, 1] * 3),  # M off the tile
+    (2, 8, 257, [0, 1, 1, 0, 1], [6, 6, 2, 0, 6]),      # n_real = 2
+    (33, 40, 330, [32, 0, 31, 1, 16, 16, 2, 32, 5],
+     [5, 6, 0, 6, 6, 1, 6, 0, 3]),
+    (9, 16, 130, [1, 2, 3, 4], [0, 0, 0, 0]),           # nothing to do
+    (11, 16, 100, [11, -1, 3, 40], [6, 6, 6, 6]),  # rows that leave nothing
+])
+def test_zloo_chunk_kernel_matches_twin(cuda, fast_math, n_real, np_pad, m,
+                                        leave, limits):
+    T = 6
+    b = len(leave)
+    g0p, g1p = _gls(np_pad, m, 7)
+    g0p[n_real:], g1p[n_real:] = 1.0, 0.0
     rng = np.random.default_rng(8)
-    ft = rng.uniform(0.05, 0.95, size=(5, 1000)).astype(np.float32)
-    sw = (rng.random((5, 1000)) < 0.6).astype(np.float32)
-    leave = np.asarray([0, 4, 10, 7, 2], np.int32)
-    lim = np.asarray([6, 2, 0, 6, 1], np.float32)
+    ft = rng.uniform(0.05, 0.95, size=(b, m)).astype(np.float32)
+    sw = (rng.random((b, m)) < 0.6).astype(np.float32)
     args = [torch.from_numpy(a).to(cuda)
-            for a in (g0p, g1p, ft, sw, leave, lim)]
+            for a in (g0p, g1p, ft, sw, np.asarray(leave, np.int32),
+                      np.asarray(limits, np.float32))]
     before = _kernels.launches["zloo_chunk"]
-    f_k, sq_k = zloo_chunk(*args, 11, 6, fast_math=fast_math)
+    f_k, sq_k = zloo_chunk(*args, n_real, T, fast_math=fast_math)
     assert _kernels.launches["zloo_chunk"] == before + 1
-    f_t, sq_t = zloo_chunk_twin(*args, 11, 6, fast_math=fast_math)
+    f_t, sq_t = zloo_chunk_twin(*args, n_real, T, fast_math=fast_math)
     torch.cuda.synchronize()
-    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
+    assert float((f_k - f_t).abs().max()) == 0.0
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
     torch.testing.assert_close(args[2], torch.from_numpy(ft).to(cuda),
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("fast_math", [True, False])
-@pytest.mark.parametrize("p", [9, 300])  # 300: the 64-site tile
-def test_sites_chunk_kernel_matches_twin(cuda, fast_math, p):
-    b, s = 4, 700  # ragged last site block
-    raw = np.random.default_rng(9).dirichlet(np.ones(3), size=(b, p, s))
+def test_zloo_chunk_panel_views(cuda):
+    """Member panels that are views at an odd offset (rows 4 bytes off the
+    16-byte grid) take the plain staging path."""
+    n_real, m, T = 11, 1000, 6
+    g0p, g1p = _gls(n_real, m + 1, 7)
+    rng = np.random.default_rng(8)
+    ft = rng.uniform(0.05, 0.95, size=(3, m)).astype(np.float32)
+    flat0 = torch.from_numpy(g0p).to(cuda).reshape(-1)
+    flat1 = torch.from_numpy(g1p).to(cuda).reshape(-1)
+    v0 = flat0[1:1 + n_real * m].view(n_real, m)
+    v1 = flat1[1:1 + n_real * m].view(n_real, m)
+    assert v0.data_ptr() % 16 == 4 and v0.is_contiguous()
+    args = (v0, v1, torch.from_numpy(ft).to(cuda),
+            torch.ones((3, m), device=cuda),
+            torch.tensor([0, 5, 10], dtype=torch.int32, device=cuda),
+            torch.full((3,), float(T), device=cuda))
+    f_k, sq_k = zloo_chunk(*args, n_real, T)
+    f_t, sq_t = zloo_chunk_twin(*args, n_real, T)
+    torch.cuda.synchronize()
+    assert float((f_k - f_t).abs().max()) == 0.0
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+
+
+def _sites_case(b, p, s, mask_kind, seed=9):
+    raw = np.random.default_rng(seed).dirichlet(np.ones(3), size=(b, p, s))
     g0p = raw[..., 0].astype(np.float32)
     g1p = raw[..., 1].astype(np.float32)
-    rng = np.random.default_rng(10)
+    rng = np.random.default_rng(seed + 1)
     ft = rng.uniform(0.05, 0.95, size=(b, s)).astype(np.float32)
-    mask = (rng.random((b, p)) < 0.7).astype(np.float32)
-    mask[:, 0] = 1.0
     sw = (rng.random((b, s)) < 0.5).astype(np.float32)
-    lim = np.asarray([5, 0, 2, 5], np.float32)
-    inv = (1.0 / mask.sum(axis=1)).astype(np.float32)
+    if mask_kind == "random":
+        mask = (rng.random((b, p)) < 0.7).astype(np.float32)
+        mask[:, 0] = 1.0
+    elif mask_kind == "ones":
+        mask = np.ones((b, p), np.float32)
+    elif mask_kind == "interior":  # zeros inside, and one-member problems
+        mask = np.ones((b, p), np.float32)
+        mask[:, 1:p - 1:2] = 0.0
+        mask[0] = 0.0
+        mask[0, p - 1] = 1.0
+    else:  # "fractional": not 0/1, the multiplied path
+        mask = rng.choice([0.0, 0.5, 1.0, 2.0], size=(b, p)).astype(
+            np.float32)
+        mask[:, 0] = 0.5
+    inv = (1.0 / np.maximum(mask.sum(axis=1), 1.0)).astype(np.float32)
+    return g0p, g1p, ft, mask, sw, inv
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+@pytest.mark.parametrize("b,p,s,mask_kind,limits", [
+    (4, 9, 700, "random", [5, 0, 2, 5]),     # ragged last site tile
+    (4, 300, 700, "random", [5, 0, 2, 5]),   # 64-site tile, 10 bitmap words
+    (2, 500, 100, "random", [5, 5]),         # 32-site tile
+    (3, 35, 2048, "random", [5, 1, 5]),      # 128-site tile, 16-byte copies
+    (3, 35, 1024, "ones", [5, 5, 5]),        # every tile by 16-byte copies
+    (3, 35, 1001, "ones", [5, 3, 5]),        # rows not 16-byte aligned
+    (5, 33, 330, "interior", [5, 5, 0, 1, 5]),
+    (5, 12, 330, "fractional", [5, 5, 0, 1, 5]),
+    (1, 2, 33, "ones", [5]),                 # B = 1, two members
+    (2, 1, 64, "ones", [5, 5]),              # one member
+    (3, 40, 96, "random", [0, 0, 0]),        # nothing to do
+])
+def test_sites_chunk_kernel_matches_twin(cuda, fast_math, b, p, s, mask_kind,
+                                         limits):
+    T = 5
+    g0p, g1p, ft, mask, sw, inv = _sites_case(b, p, s, mask_kind)
+    lim = np.asarray(limits, np.float32)
     args = [torch.from_numpy(a).to(cuda)
             for a in (g0p, g1p, ft, mask, sw, lim, inv)]
     before = _kernels.launches["sites_chunk"]
-    f_k, sq_k = sites_chunk(*args, 5, fast_math=fast_math)
+    f_k, sq_k = sites_chunk(*args, T, fast_math=fast_math)
     assert _kernels.launches["sites_chunk"] == before + 1
-    f_t, sq_t = sites_chunk_twin(*args, 5, fast_math=fast_math)
+    f_t, sq_t = sites_chunk_twin(*args, T, fast_math=fast_math)
     torch.cuda.synchronize()
-    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
+    assert float((f_k - f_t).abs().max()) == 0.0
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+    torch.testing.assert_close(args[2], torch.from_numpy(ft).to(cuda),
+                               rtol=0, atol=0)
+
+
+def test_sites_chunk_finished_problem_with_nan_panel(cuda):
+    """A problem at limit 0 is copied through with sq = 0 though its panel
+    holds NaN: its block never reads the panel."""
+    T = 5
+    g0p, g1p, ft, mask, sw, inv = _sites_case(3, 9, 200, "random")
+    g0p[1] = np.nan
+    lim = np.asarray([5, 0, 2], np.float32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (g0p, g1p, ft, mask, sw, lim, inv)]
+    f_k, sq_k = sites_chunk(*args, T)
+    f_t, sq_t = sites_chunk_twin(*args, T)
+    torch.cuda.synchronize()
+    assert torch.equal(f_k, f_t)
+    assert torch.equal(f_k[1], args[2][1])
+    assert float(sq_k[:, 1].abs().max()) == 0.0
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
 def test_zloo_member_bound_raises(cuda):
-    bound = max_zloo_members(4, 2)
-    n = bound + 1
-    g = torch.full((n, 64), 0.3, device=cuda)
-    args = (g, g, torch.full((2, 64), 0.25, device=cuda),
-            torch.ones((2, 64), device=cuda),
-            torch.zeros(2, dtype=torch.int32, device=cuda),
-            torch.full((2,), 4.0, device=cuda))
+    """At the bound the kernel runs and agrees with the twin; one member
+    more raises before any launch, whatever T and B."""
+    bound, m, T = max_zloo_members(), 40, 2
+    assert bound == 908
+    g0p, g1p = _gls(bound + 1, m, 12)
+    g0d, g1d = torch.from_numpy(g0p).to(cuda), torch.from_numpy(g1p).to(cuda)
+    rest = (torch.full((5, m), 0.25, device=cuda),
+            torch.ones((5, m), device=cuda),
+            torch.tensor([0, 500, 907, 907, 3], dtype=torch.int32,
+                         device=cuda),
+            torch.full((5,), float(T), device=cuda))
+    args = (g0d[:bound].contiguous(), g1d[:bound].contiguous(), *rest)
+    f_k, sq_k = zloo_chunk(*args, bound, T)
+    f_t, sq_t = zloo_chunk_twin(*args, bound, T)
+    torch.cuda.synchronize()
+    assert float((f_k - f_t).abs().max()) == 0.0
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+    before = _kernels.launches["zloo_chunk"]
     with pytest.raises(ValueError, match=f"bound of {bound} members"):
-        zloo_chunk(*args, n, 4)
+        zloo_chunk(g0d, g1d, *rest, bound + 1, T)
+    assert _kernels.launches["zloo_chunk"] == before
+
+
+def test_sites_member_bound_raises(cuda):
+    """At the bound the kernel runs and agrees with the twin; one member
+    more raises before any launch."""
+    bound, s, T = max_sites_members(), 40, 2
+    assert bound == 907
+    g0p, g1p, ft, mask, sw, inv = _sites_case(2, bound + 1, s, "random", 14)
+    full = [torch.from_numpy(a).to(cuda) for a in (g0p, g1p, ft, mask, sw)]
+    lim = torch.full((2,), float(T), device=cuda)
+    invd = torch.from_numpy(
+        (1.0 / mask[:, :bound].sum(axis=1)).astype(np.float32)).to(cuda)
+    args = (full[0][:, :bound].contiguous(), full[1][:, :bound].contiguous(),
+            full[2], full[3][:, :bound].contiguous(), full[4], lim, invd)
+    f_k, sq_k = sites_chunk(*args, T)
+    f_t, sq_t = sites_chunk_twin(*args, T)
+    torch.cuda.synchronize()
+    assert float((f_k - f_t).abs().max()) == 0.0
+    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
+    before = _kernels.launches["sites_chunk"]
+    with pytest.raises(ValueError, match=f"bound of {bound} members"):
+        sites_chunk(*full, lim, torch.from_numpy(inv).to(cuda), T)
+    assert _kernels.launches["sites_chunk"] == before
 
 
 def test_zscore_fused_ems_kernel_vs_twin(cuda):

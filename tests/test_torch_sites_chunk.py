@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from wgsassign_tpu.ops.pallas_emmaf import sites_chunk_pallas
 from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.ops.sites_chunk import (
+    SITES_WARPS,
     max_sites_members,
     sites_chunk,
     sites_chunk_geometry,
@@ -76,20 +77,84 @@ def test_wrapper_runs_twin_on_cpu_and_keeps_input():
     assert _kernels.launches["sites_chunk"] == before
 
 
-@pytest.mark.parametrize("p,block_sites", [
-    (35, 128),    # the headline population less the scored individual
-    (300, 64),
-    (800, 32),
+def _interior_zeros(mask):
+    mask[:] = 1.0
+    mask[:, [2, 3, 6]] = 0.0
+    mask[1] = 0.0
+    mask[1, 4] = 1.0  # one member only
+    return mask
+
+
+def _fractional(mask):
+    mask[:] = np.random.default_rng(8).choice(
+        [0.0, 0.5, 1.0, 2.0], size=mask.shape).astype(np.float32)
+    mask[:, 0] = 0.5
+    return mask
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+@pytest.mark.parametrize("remask", [_interior_zeros, _fractional])
+def test_twin_matches_pallas_chunk_masks(fast_math, remask):
+    """Masks the CUDA kernel special-cases (it packs the rows of a 0/1
+    mask, and multiplies by any other) are plain in the twin: it must agree
+    with the Pallas kernel on them."""
+    g0p, g1p, ft, mask, sw, _ = _sites_inputs()
+    mask = remask(mask)
+    inv = (1.0 / np.maximum(mask.sum(axis=1), 1.0)).astype(np.float32)
+    lim = np.asarray([4, 4, 2, 0, 4], np.float32)
+    f_ref, sq_ref = sites_chunk_pallas(
+        jnp.asarray(g0p), jnp.asarray(g1p), jnp.asarray(ft[:, None, :]),
+        jnp.asarray(mask[:, None, :]), jnp.asarray(sw[:, None, :]),
+        jnp.asarray(lim.reshape(B, 1, 1)), jnp.asarray(inv.reshape(B, 1, 1)),
+        T, interpret=True, fast_math=fast_math,
+    )
+    f, sq = sites_chunk_twin(*map(torch.from_numpy,
+                                  (g0p, g1p, ft, mask, sw, lim, inv)),
+                             T, fast_math=fast_math)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref)[:, 0, :], rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.parametrize("fast_math", [True, False])
+def test_twin_copies_finished_problem_with_nan_panel(fast_math):
+    """A problem at limit 0 is copied through and adds nothing to sq, even
+    where its panel holds NaN; the other problems do not see it."""
+    g0p, g1p, ft, mask, sw, inv = _sites_inputs()
+    lim = np.asarray([4, 0, 3, 4, 0], np.float32)
+    clean = [torch.from_numpy(a) for a in (g0p, g1p, ft, mask, sw, lim, inv)]
+    f_clean, sq_clean = sites_chunk_twin(*clean, T, fast_math=fast_math)
+    g0p[1], g1p[4, 2] = np.nan, np.nan
+    dirty = [torch.from_numpy(a) for a in (g0p, g1p, ft, mask, sw, lim, inv)]
+    f, sq = sites_chunk_twin(*dirty, T, fast_math=fast_math)
+    torch.testing.assert_close(f, f_clean, rtol=0, atol=0)
+    torch.testing.assert_close(sq, sq_clean, rtol=0, atol=0)
+    for i in (1, 4):
+        np.testing.assert_array_equal(f.numpy()[i], ft[i])
+        np.testing.assert_array_equal(sq.numpy()[:, i], 0.0)
+
+
+@pytest.mark.parametrize("p,warps,smem", [
+    # the headline population less the scored individual: 6 blocks of 4
+    # warps are resident, as many warps as narrower tiles would hold
+    (35, 4, 35864),
+    (32, 2, 16400),     # one bitmap word; 13 blocks of 2 warps
+    (33, 4, 33816),     # two
+    (226, 4, 231496),   # the widest panel a 128-site tile takes
+    (227, 1, 58184),    # 3 blocks of 1 warp beat 1 block of 2
+    (300, 2, 153688),
+    (800, 1, 205008),
+    (907, 1, 232432),
 ])
-def test_geometry_picks_widest_tile(p, block_sites):
-    s, smem = sites_chunk_geometry(p, 8)
-    assert s == block_sites
-    assert smem <= _kernels.SMEM_LIMIT
+def test_geometry_picks_tile_and_counts_bitmap(p, warps, smem):
+    assert sites_chunk_geometry(p) == (warps, smem)
+    assert warps in SITES_WARPS and smem <= _kernels.SMEM_LIMIT
 
 
 def test_member_bound_raises():
-    bound = max_sites_members(8)
+    bound = max_sites_members()
     assert bound == 907
-    sites_chunk_geometry(bound, 8)
+    sites_chunk_geometry(bound)
     with pytest.raises(ValueError, match="907 members"):
-        sites_chunk_geometry(bound + 1, 8)
+        sites_chunk_geometry(bound + 1)

@@ -74,20 +74,57 @@ def test_wrapper_runs_twin_on_cpu_and_keeps_input():
     assert _kernels.launches["zloo_chunk"] == before
 
 
-@pytest.mark.parametrize("n_real,b,block_sites", [
-    (36, 13, 128),   # one population's share of a 64-individual group
-    (300, 64, 64),
-    (800, 64, 32),
+@pytest.mark.parametrize("fast_math", [True, False])
+@pytest.mark.parametrize("leave,limits", [
+    ([2, 2, 2], [4, 4, 4]),            # repeated left-out member
+    ([4, 2, 0], [4, 3, 4]),            # descending
+    ([3], [4]),                        # B = 1
+    ([0, 4, 1, 1, 3], [4, 0, 2, 4, 1]),  # B = 5: a full tile and one more
 ])
-def test_geometry_picks_widest_tile(n_real, b, block_sites):
-    s, smem = zloo_chunk_geometry(n_real, b, 8)
-    assert s == block_sites
-    assert smem <= _kernels.SMEM_LIMIT
+def test_twin_matches_pallas_chunk_leave_patterns(fast_math, leave, limits):
+    """What the CUDA kernel special-cases (the split of the member loop at
+    the tile's left-out rows, ragged problem tiles, the order by limit) is
+    plain in the twin: it must agree with the Pallas kernel on them."""
+    b = len(leave)
+    g0p, g1p, ft, sw, _ = _zloo_inputs(b=b, seed=6)
+    lv = np.asarray(leave, np.int32)
+    lim = np.asarray(limits, np.float32)
+    f_ref, sq_ref = zloo_chunk_pallas(
+        jnp.asarray(g0p), jnp.asarray(g1p), jnp.asarray(ft[:, None, :]),
+        jnp.asarray(sw[:, None, :]), jnp.asarray(lv.reshape(b, 1, 1)),
+        jnp.asarray(lim.reshape(b, 1, 1)), N_REAL, T, interpret=True,
+        fast_math=fast_math,
+    )
+    f, sq = zloo_chunk_twin(
+        *map(torch.from_numpy, (g0p, g1p, ft, sw, lv, lim)), N_REAL, T,
+        fast_math=fast_math)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref)[:, 0, :], rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,
+                               atol=0)
+    for i in np.flatnonzero(lim == 0):
+        np.testing.assert_array_equal(f.numpy()[i], ft[i])
+        np.testing.assert_array_equal(sq.numpy()[:, i], 0.0)
+
+
+@pytest.mark.parametrize("n_real,b,warps", [
+    (36, 13, 3),   # one population's share of a 64-individual group: 5, 4, 4
+    (36, 12, 3),   # three full tiles, one a warp
+    (36, 64, 2),   # 16 tiles over 2 warps: shared memory allows 22 blocks
+    (36, 1, 1),
+    (36, 5, 1),    # a second warp would idle three quarters of the time
+    (300, 64, 8),  # 76.8 KB a block: 2 blocks an SM, so the most warps
+])
+def test_geometry_picks_warps(n_real, b, warps):
+    w, smem = zloo_chunk_geometry(n_real, b)
+    assert w == warps
+    assert smem == 8 * n_real * 32 <= _kernels.SMEM_LIMIT
 
 
 def test_member_bound_raises():
-    bound = max_zloo_members(8, 64)
-    assert bound == 900
-    zloo_chunk_geometry(bound, 64, 8)
-    with pytest.raises(ValueError, match="900 members"):
-        zloo_chunk_geometry(bound + 1, 64, 8)
+    bound = max_zloo_members()
+    assert bound == 908
+    for b in (1, 64, 500):  # the bound depends on neither B nor T
+        assert zloo_chunk_geometry(bound, b)[1] <= _kernels.SMEM_LIMIT
+        with pytest.raises(ValueError, match="908 members"):
+            zloo_chunk_geometry(bound + 1, b)

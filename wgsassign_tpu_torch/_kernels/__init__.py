@@ -58,15 +58,17 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_loo_chunk": (_I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "wg_zloo_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_zloo_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_sites_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _P),
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 # wg_<kernel>_occupancy(device, block width, smem bytes, fast_math)
 _OCCUPANCY_SIGNATURES = {
     "wg_em_chunk_occupancy": (_I, _I, _I, _I),
     "wg_loo_chunk_occupancy": (_I, _I, _I, _I),
+    "wg_zloo_chunk_occupancy": (_I, _I, _I, _I),
+    "wg_sites_chunk_occupancy": (_I, _I, _I, _I),
 }
 
 
@@ -169,8 +171,9 @@ def occupancy(name: str, device: torch.device, width: int, smem_bytes: int,
               fast_math: bool = True) -> int:
     """Resident blocks per SM that the CUDA runtime reports
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for kernel ``name``
-    (``em_chunk``: ``width`` sites a block; ``loo_chunk``: ``width`` warps a
-    block) with ``smem_bytes`` of dynamic shared memory."""
+    (``em_chunk``: ``width`` sites a block; ``loo_chunk``, ``zloo_chunk``
+    and ``sites_chunk``: ``width`` warps a block) with ``smem_bytes`` of
+    dynamic shared memory."""
     lib = library()
     blocks = getattr(lib, f"wg_{name}_occupancy")(
         device.index or 0, width, smem_bytes, int(bool(fast_math)))
@@ -190,6 +193,13 @@ def probe(device: torch.device) -> None:
     torch.cuda.synchronize(device)
     if not bool(torch.all(y == 1.0)):
         raise RuntimeError("CUDA probe kernel returned wrong values")
+
+
+def rows_aligned(row_len: int, *planes: torch.Tensor) -> bool:
+    """Whether every row of these contiguous float32 planes with rows of
+    ``row_len`` elements starts on a 16-byte boundary (what the kernels'
+    16-byte ``cp.async`` copies of 4-site groups need)."""
+    return row_len % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in planes)
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,

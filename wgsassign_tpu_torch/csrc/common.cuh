@@ -77,3 +77,70 @@ __device__ __forceinline__ void cp_async_4(void* smem_dst,
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// The leave-one-out kernels (loo_chunk.cu, zloo_chunk.cu): a block owns
+// WG_TILE_SITES consecutive sites, a lane is a site, and the block's
+// [n_real, 32] tile of both member panels lies in shared memory.
+constexpr int WG_TILE_SITES = 32;
+
+// Stage rows [0, n_rows) x sites [s0, s0 + 32) of two site-minor planes with
+// row length M into sg0 / sg1 ([n_rows][32] each).  `aligned`: every row of
+// both planes starts 16-byte aligned at s0, so full tiles go by 16-byte
+// cp.async; the ragged last tile and unaligned rows go through registers,
+// and sites past M get the padding pattern (1, 0), whose weight is exactly
+// 0.  lane, warp, n_warps, real (s < M) and s = s0 + lane are the caller's
+// own values (recomputing them here costs the LOO kernel a register and two
+// resident blocks an SM).  The caller's __syncthreads() makes the tile
+// visible.
+__device__ __forceinline__ void stage_member_tile(
+    const float* __restrict__ g0p, const float* __restrict__ g1p, float* sg0,
+    float* sg1, int n_rows, int M, long long s0, int aligned, int lane,
+    int warp, int n_warps, bool real, long long s) {
+  const int tid = threadIdx.x;
+  if (aligned && s0 + WG_TILE_SITES <= M) {
+    // a row of the tile is 128 bytes: eight 16-byte copies per member and
+    // plane, consecutive threads on consecutive chunks
+    const int per_plane = n_rows * (WG_TILE_SITES / 4);
+    for (int e = tid; e < 2 * per_plane; e += blockDim.x) {
+      const int plane = e >= per_plane;
+      const int ee = e - plane * per_plane;
+      const int i = ee >> 3;
+      const int c4 = (ee & 7) * 4;
+      const float* src = (plane ? g1p : g0p) + (long long)i * M + s0 + c4;
+      cp_async_16((plane ? sg1 : sg0) + i * WG_TILE_SITES + c4, src);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int i = warp; i < n_rows; i += n_warps) {
+      sg0[i * WG_TILE_SITES + lane] = real ? g0p[(long long)i * M + s] : 1.0f;
+      sg1[i * WG_TILE_SITES + lane] = real ? g1p[(long long)i * M + s] : 0.0f;
+    }
+  }
+}
+
+// Members [i0, i1) of the staged tile added to NB problems' sums, in
+// ascending order; sg0 / sg1 point at this lane's column.  MASKED: a
+// problem's own left-out member j[q] adds an exact 0.0f instead of its
+// weight (a select, never a branch).  One (g0, g1, g2) read feeds NB
+// weights, and NB independent divide chains hide each other's latency.
+template <bool FAST, int NB, bool MASKED>
+__device__ __forceinline__ void loo_members(
+    const float* __restrict__ sg0, const float* __restrict__ sg1, int i0,
+    int i1, const int (&j)[NB], const float (&f)[NB], float (&acc)[NB]) {
+  float omf[NB];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) omf[q] = 1.0f - f[q];
+  const float* pa = sg0 + i0 * WG_TILE_SITES;
+  const float* pb = sg1 + i0 * WG_TILE_SITES;
+#pragma unroll 2
+  for (int i = i0; i < i1; ++i, pa += WG_TILE_SITES, pb += WG_TILE_SITES) {
+    const float a = *pa;
+    const float b = *pb;
+    const float c = 1.0f - a - b;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const float w = em_w<FAST>(a, b, c, f[q], omf[q]);
+      acc[q] += (MASKED && i == j[q]) ? 0.0f : w;
+    }
+  }
+}

@@ -56,32 +56,8 @@
 
 namespace {
 
-constexpr int LOO_SITES = 32;  // ops/loo_chunk.py::LOO_SITES
+constexpr int LOO_SITES = WG_TILE_SITES;  // ops/loo_chunk.py::LOO_SITES
 constexpr int JB = WG_LOO_JB;  // ops/loo_chunk.py::LOO_PROBLEM_TILE
-
-// Members [i0, i1) added to NB problems' sums (omf[q] = 1 - f[q]).  MASKED:
-// a problem's own member adds 0.0f instead of its weight.
-template <bool FAST, int NB, bool MASKED>
-__device__ __forceinline__ void loo_members(
-    const float* __restrict__ sg0, const float* __restrict__ sg1, int i0,
-    int i1, const int (&j)[NB], const float (&f)[NB], float (&acc)[NB]) {
-  float omf[NB];
-#pragma unroll
-  for (int q = 0; q < NB; ++q) omf[q] = 1.0f - f[q];
-  const float* pa = sg0 + i0 * LOO_SITES;
-  const float* pb = sg1 + i0 * LOO_SITES;
-#pragma unroll 2
-  for (int i = i0; i < i1; ++i, pa += LOO_SITES, pb += LOO_SITES) {
-    const float a = *pa;
-    const float b = *pb;
-    const float c = 1.0f - a - b;
-#pragma unroll
-    for (int q = 0; q < NB; ++q) {
-      const float w = em_w<FAST>(a, b, c, f[q], omf[q]);
-      acc[q] += (MASKED && i == j[q]) ? 0.0f : w;
-    }
-  }
-}
 
 template <bool FAST>
 __global__ void __launch_bounds__(256) loo_chunk_kernel(
@@ -101,27 +77,8 @@ __global__ void __launch_bounds__(256) loo_chunk_kernel(
   const long long s = s0 + lane;
   const bool real = s < M;
 
-  if (aligned && s0 + LOO_SITES <= M) {
-    // a row of the tile is 128 bytes: eight 16-byte copies per member and
-    // plane, consecutive threads on consecutive chunks
-    const int per_plane = n_real * (LOO_SITES / 4);
-    for (int e = tid; e < 2 * per_plane; e += blockDim.x) {
-      const int plane = e >= per_plane;
-      const int ee = e - plane * per_plane;
-      const int i = ee >> 3;
-      const int c4 = (ee & 7) * 4;
-      const float* src = (plane ? g1p : g0p) + (long long)i * M + s0 + c4;
-      cp_async_16((plane ? sg1 : sg0) + i * LOO_SITES + c4, src);
-    }
-    cp_async_wait_all();
-  } else {
-    // the ragged last tile, or rows that are not 16-byte aligned; sites
-    // past M hold the padding pattern (1, 0), whose weight is exactly 0
-    for (int i = warp; i < n_real; i += n_warps) {
-      sg0[i * LOO_SITES + lane] = real ? g0p[(long long)i * M + s] : 1.0f;
-      sg1[i * LOO_SITES + lane] = real ? g1p[(long long)i * M + s] : 0.0f;
-    }
-  }
+  stage_member_tile(g0p, g1p, sg0, sg1, n_real, M, s0, aligned, lane, warp,
+                    n_warps, real, s);
   __syncthreads();
   sg0 += lane;
   sg1 += lane;

@@ -8,105 +8,336 @@
 //     f_b <- clip((sum_p w(g_bp, f_b) * mask[b, p]) * inv[b])
 // at each of its S site slots; sq[t, b] = sum_s (d * d * sw[b, s]).
 //
-// What bounds it on an H100: per site and iteration ~13 float ops and an
-// IEEE divide per member against 8 P bytes of GLs read once per chunk:
-// compute-bound.  The block's [P, S] slice of both panels takes 8 * P * S
-// bytes of shared memory; at the smallest tile (S = 32 sites) the wrapper
-// raises above max_sites_members(T) members (907 at T = 8).
+// What bounds it on an H100: the published bound is bytes (every problem
+// reads its own 8 P S bytes of panels once per chunk), but under the
+// rounding contract (common.cuh) a weight is ~25 instruction slots, so the
+// float32 pipe is what the kernel waits for.  No panel is shared between
+// problems, so a site's 8 P bytes stay in shared memory for the T
+// iterations and shared memory sets the occupancy whatever the tile
+// (~25 warps an SM at P = 35): the design has to spend few instructions on a
+// weight.
 //
-// Design: one problem per blockIdx.y, one site per thread.  The block
-// stages its [P, S] slice of problem b's panels in shared memory once per
-// chunk and keeps f in a register for all T iterations.  Members are summed
-// in ascending order and the product with inv[b] follows the member sum,
-// the op order of the plain version (ops/emmaf.py::em_maf_sites_batch);
-// members whose mask is 0 add exactly 0 there and are skipped here.  The
-// per-iteration partials are reduced per warp with shuffles and per block
-// in a fixed order into sq_part[site block, T, B]; no float atomics.
+// Design, and what each part is for:
+// - A block is one problem (blockIdx.y) and W * 32 consecutive site slots,
+//   one thread a site (W = 1, 2, 4 or 8 warps, the caller's choice: the
+//   widest tile that keeps the most warps resident, since every block costs
+//   a launch: at P = 35 a grid of 1M one-warp blocks takes ~0.3 ms longer
+//   than 262,144 blocks of four).  It reads its limit first: a finished
+//   problem (limit 0) copies ft through, writes zero partials and stages
+//   nothing, so chunks and replays in which most problems have converged
+//   read almost no panel bytes.
+// - Warp 0 turns the problem's mask row into a bitmap and running counts
+//   (8 bytes per 32 members of shared memory).  Where every non-zero mask
+//   value is 1.0 -- the z-score path's masks -- only the rows that take part
+//   are staged, packed in ascending order, and the member loop runs over
+//   them with no test and no multiply (w * 1.0f is w).  Any other mask
+//   stages every row and multiplies each weight by its mask value, 0
+//   included, exactly as the plain twin does.
+// - Rows are staged with 16-byte cp.async where S and the tile offset keep
+//   them 16-byte aligned, through registers otherwise (unaligned rows, the
+//   ragged last tile, whose slots past S get the padding pattern (1, 0) and
+//   d = 0).  No second buffer: 6 blocks of 4 warps are resident on an SM at
+//   P = 35, each in another phase, so one block's staging (35 KB) hides
+//   behind the others' arithmetic.
+// - The member loop is unrolled by SITES_UNROLL, which amortises the loop's
+//   own instructions.  It buys no overlap inside a thread: every IEEE
+//   divide ends in a range check and a branch to its slow path, and the
+//   compiler keeps the unrolled weights in order around them, so the
+//   resident warps hide the latency.  The sum is taken in ascending member
+//   order as the twin's.  1 - f is hoisted out of the loop; f * (1 - f) is
+//   not (it would round otherwise).  g2 = 1 - g0 - g1 is rebuilt in registers (SITES_LAYOUT 0, two planes;
+//   1 keeps (g0, g1) as one 8-byte pair, 2 keeps g2 as a third plane: the
+//   tuning tool times all three).
+// - Each warp's lane 0 writes its per-iteration sums into
+//   sq_part[32-site tile, T, B]; the caller sums the tiles in one fixed
+//   order.  No scratch in shared memory and no float atomics: the
+//   convergence decision reads these sums.
+// - The panel slice must fit the 227 KB: at most 907 members at any chunk
+//   length, where the wrapper raises.
 #include "common.cuh"
 
-template <bool FAST>
-__global__ void sites_chunk_kernel(
+#ifndef WG_SITES_UNROLL
+#define WG_SITES_UNROLL 8
+#endif
+#ifndef WG_SITES_LAYOUT
+#define WG_SITES_LAYOUT 0
+#endif
+
+namespace {
+
+constexpr int SITES_UNROLL = WG_SITES_UNROLL;
+constexpr int SITES_LAYOUT = WG_SITES_LAYOUT;  // ops/sites_chunk.py
+constexpr int PLANES = SITES_LAYOUT == 2 ? 3 : 2;
+
+// The staged GL triple of packed member row i at this thread's site; sg
+// points at the thread's column of the TS-site tile, n_rows is the number of
+// staged rows.
+template <int TS>
+__device__ __forceinline__ void staged_gl(const float* __restrict__ sg, int i,
+                                          int n_rows, float& a, float& b,
+                                          float& c) {
+  if constexpr (SITES_LAYOUT == 1) {
+    const float2 v = reinterpret_cast<const float2*>(sg)[i * TS];
+    a = v.x;
+    b = v.y;
+  } else {
+    a = sg[i * TS];
+    b = sg[(n_rows + i) * TS];
+  }
+  if constexpr (SITES_LAYOUT == 2) {
+    c = sg[(2 * n_rows + i) * TS];
+  } else {
+    c = 1.0f - a - b;
+  }
+}
+
+// Sum of the n_rows staged members' weights under f, in ascending order.
+// MULT: each weight times its mask value (mk, indexed like the rows).
+template <bool FAST, bool MULT, int TS>
+__device__ __forceinline__ float sites_member_sum(
+    const float* __restrict__ sg, int n_rows, float f,
+    const float* __restrict__ mk) {
+  const float omf = 1.0f - f;
+  float acc = 0.0f;
+  int i = 0;
+  for (; i + SITES_UNROLL <= n_rows; i += SITES_UNROLL) {
+    float w[SITES_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SITES_UNROLL; ++u) {
+      float a, b, c;
+      staged_gl<TS>(sg, i + u, n_rows, a, b, c);
+      w[u] = em_w<FAST>(a, b, c, f, omf);
+      if (MULT) w[u] = w[u] * __ldg(mk + i + u);
+    }
+#pragma unroll
+    for (int u = 0; u < SITES_UNROLL; ++u) acc += w[u];
+  }
+  for (; i < n_rows; ++i) {
+    float a, b, c;
+    staged_gl<TS>(sg, i, n_rows, a, b, c);
+    float w = em_w<FAST>(a, b, c, f, omf);
+    if (MULT) w = w * __ldg(mk + i);
+    acc += w;
+  }
+  return acc;
+}
+
+// W warps a block: a tile of TS = 32 W site slots.
+template <bool FAST, int W>
+__global__ void __launch_bounds__(32 * W) sites_chunk_kernel(
     const float* __restrict__ g0p, const float* __restrict__ g1p,
     const float* __restrict__ ft_in, float* __restrict__ ft_out,
     const float* __restrict__ mask, const float* __restrict__ sw,
     const float* __restrict__ limits, const float* __restrict__ inv_counts,
-    float* __restrict__ sq_part, int B, int P, int S_total, int T) {
-  extern __shared__ float smem[];
-  const int S = blockDim.x;
+    float* __restrict__ sq_part, int B, int P, int S_total, int T,
+    int aligned) {
+  constexpr int TS = 32 * W;
+  extern __shared__ float4 smem4[];
+  float* sg = reinterpret_cast<float*>(smem4);  // [PLANES][rows][TS]
+  const int n_words = (P + 31) >> 5;
+  unsigned* bits = reinterpret_cast<unsigned*>(sg + PLANES * P * TS);
+  int* pre = reinterpret_cast<int*>(bits + n_words);  // rows before a word
+  int* head = pre + n_words;  // {staged rows, every non-zero mask is 1}
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = S >> 5;
   const int b = blockIdx.y;
-
-  float* sg0 = smem;           // [P][S]
-  float* sg1 = sg0 + P * S;    // [P][S]
-  float* ssq = sg1 + P * S;    // [n_warps][T]
-
-  const long long s = (long long)blockIdx.x * S + tid;
+  const long long s0 = (long long)blockIdx.x * TS;
+  const long long s = s0 + tid;
   const bool real = s < S_total;
-  const long long panel = (long long)b * P * S_total;
   const long long row = (long long)b * S_total + s;
-
-  // consecutive threads read consecutive sites of each member row
-  for (int p = 0; p < P; ++p) {
-    sg0[p * S + tid] = real ? g0p[panel + (long long)p * S_total + s] : 1.0f;
-    sg1[p * S + tid] = real ? g1p[panel + (long long)p * S_total + s] : 0.0f;
-  }
-  __syncthreads();
+  float* part =
+      sq_part + ((long long)blockIdx.x * W + warp) * T * B + b;
 
   const float lim = __ldg(limits + b);
-  const float inv = __ldg(inv_counts + b);
+  if (!(lim > 0.0f)) {
+    if (real) ft_out[row] = ft_in[row];
+    if (lane == 0) {
+      for (int t = 0; t < T; ++t) part[(long long)t * B] = 0.0f;
+    }
+    return;
+  }
+
   const float* mask_b = mask + (long long)b * P;
+  if (warp == 0) {
+    int count = 0;
+    bool ones = true;
+    for (int w = 0; w < n_words; ++w) {
+      const int p = w * 32 + lane;
+      const float mk = p < P ? __ldg(mask_b + p) : 0.0f;
+      ones = ones && (mk == 0.0f || mk == 1.0f);
+      const unsigned word = __ballot_sync(0xffffffffu, mk != 0.0f);
+      if (lane == 0) {
+        bits[w] = word;
+        pre[w] = count;
+      }
+      count += __popc(word);
+    }
+    ones = __all_sync(0xffffffffu, ones);
+    __syncwarp();
+    if (!ones) {
+      // a mask with other values: every row is staged, at its own index
+      for (int w = lane; w < n_words; w += 32) {
+        const int left = P - w * 32;
+        bits[w] = left >= 32 ? 0xffffffffu : ((1u << left) - 1u);
+        pre[w] = w * 32;
+      }
+      count = P;
+    }
+    if (lane == 0) {
+      head[0] = count;
+      head[1] = ones;
+    }
+  }
+  __syncthreads();
+  const int n_rows = head[0];
+  const bool packed = head[1] != 0;
+
+  const long long panel = (long long)b * P * S_total + s0;
+  if (SITES_LAYOUT == 1 && s0 + TS <= S_total) {
+    // pairs interleave the two planes: 4-byte copies, one site each
+    const int per_plane = P * TS;
+    for (int e = tid; e < 2 * per_plane; e += TS) {
+      const int plane = e >= per_plane;
+      const int ee = e - plane * per_plane;
+      const int p = ee / TS;
+      const int c = ee % TS;
+      const unsigned word = bits[p >> 5];
+      if (!((word >> (p & 31)) & 1u)) continue;
+      const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
+      const float* src =
+          (plane ? g1p : g0p) + panel + (long long)p * S_total + c;
+      cp_async_4(sg + 2 * (i * TS + c) + plane, src);
+    }
+    cp_async_wait_all();
+  } else if (SITES_LAYOUT != 1 && aligned && s0 + TS <= S_total) {
+    // a row of the tile is TS / 4 16-byte copies per plane, consecutive
+    // threads on consecutive chunks
+    constexpr int CPR = TS / 4;
+    const int per_plane = P * CPR;
+    for (int e = tid; e < 2 * per_plane; e += TS) {
+      const int plane = e >= per_plane;
+      const int ee = e - plane * per_plane;
+      const int p = ee / CPR;
+      const int c4 = (ee % CPR) * 4;
+      const unsigned word = bits[p >> 5];
+      if (!((word >> (p & 31)) & 1u)) continue;
+      const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
+      const float* src =
+          (plane ? g1p : g0p) + panel + (long long)p * S_total + c4;
+      cp_async_16(sg + ((plane ? n_rows : 0) + i) * TS + c4, src);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int p = warp; p < P; p += W) {
+      const unsigned word = bits[p >> 5];
+      if (!((word >> (p & 31)) & 1u)) continue;
+      const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
+      for (int c = lane; c < TS; c += 32) {
+        const bool in = s0 + c < S_total;
+        const long long at = panel + (long long)p * S_total + c;
+        const float a = in ? g0p[at] : 1.0f;
+        const float g = in ? g1p[at] : 0.0f;
+        if constexpr (SITES_LAYOUT == 1) {
+          reinterpret_cast<float2*>(sg)[i * TS + c] = make_float2(a, g);
+        } else {
+          sg[i * TS + c] = a;
+          sg[(n_rows + i) * TS + c] = g;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (SITES_LAYOUT == 2) {
+    for (int e = tid; e < n_rows * TS; e += TS) {
+      sg[2 * n_rows * TS + e] = 1.0f - sg[e] - sg[n_rows * TS + e];
+    }
+    __syncthreads();
+  }
+  const float* col = sg + (SITES_LAYOUT == 1 ? 2 * tid : tid);
+
+  const float inv = __ldg(inv_counts + b);
   float f = real ? ft_in[row] : WG_EM_LO;
   const float w_site = real ? sw[row] : 0.0f;
   for (int t = 0; t < T; ++t) {
-    float d = 0.0f;
+    float v = 0.0f;
     if (lim > (float)t) {  // uniform across the block
-      float acc = 0.0f;
-      for (int p = 0; p < P; ++p) {
-        const float mk = __ldg(mask_b + p);
-        if (mk == 0.0f) continue;
-        const float a = sg0[p * S + tid];
-        const float c = sg1[p * S + tid];
-        acc += em_w<FAST>(a, c, 1.0f - a - c, f) * mk;
-      }
+      const float acc =
+          packed
+              ? sites_member_sum<FAST, false, TS>(col, n_rows, f, mask_b)
+              : sites_member_sum<FAST, true, TS>(col, n_rows, f, mask_b);
       const float f_new = em_clip(acc * inv);
-      d = real ? f_new - f : 0.0f;
+      const float d = real ? f_new - f : 0.0f;
       f = f_new;
+      v = warp_sum(d * d * w_site);
     }
-    const float v = warp_sum(d * d * w_site);
-    if (lane == 0) ssq[warp * T + t] = v;
+    if (lane == 0) part[(long long)t * B] = v;
   }
   if (real) ft_out[row] = f;
-  __syncthreads();
-  for (int t = tid; t < T; t += S) {
-    float v = 0.0f;
-    for (int w = 0; w < n_warps; ++w) v += ssq[w * T + t];
-    sq_part[((long long)blockIdx.x * T + t) * B + b] = v;
+}
+
+using SitesKernel = void (*)(const float*, const float*, const float*,
+                             float*, const float*, const float*,
+                             const float*, const float*, float*, int, int,
+                             int, int, int);
+
+template <int W>
+SitesKernel sites_kernel_w(int fast_math) {
+  return fast_math ? sites_chunk_kernel<true, W> : sites_chunk_kernel<false, W>;
+}
+
+// The instantiation for `warps` warps a block (ops/sites_chunk.py::
+// SITES_WARPS), or nullptr.
+SitesKernel sites_kernel(int warps, int fast_math) {
+  switch (warps) {
+    case 1: return sites_kernel_w<1>(fast_math);
+    case 2: return sites_kernel_w<2>(fast_math);
+    case 4: return sites_kernel_w<4>(fast_math);
+    case 8: return sites_kernel_w<8>(fast_math);
+    default: return nullptr;
   }
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+}  // namespace
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a block width that is not built.
 WG_EXPORT int wg_sites_chunk(int device, const float* g0p, const float* g1p,
                              const float* ft_in, float* ft_out,
                              const float* mask, const float* sw,
                              const float* limits, const float* inv_counts,
                              float* sq_part, int B, int P, int S_total, int T,
-                             int block_sites, int smem_bytes, int fast_math,
-                             void* stream) {
+                             int warps, int smem_bytes, int aligned,
+                             int fast_math, void* stream) {
+  SitesKernel kern = sites_kernel(warps, fast_math);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  void (*kern)(const float*, const float*, const float*, float*,
-               const float*, const float*, const float*, const float*,
-               float*, int, int, int, int) =
-      fast_math ? sites_chunk_kernel<true> : sites_chunk_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S_total + block_sites - 1) / block_sites, B);
-  kern<<<grid, block_sites, smem_bytes, (cudaStream_t)stream>>>(
+  const int ts = 32 * warps;
+  const dim3 grid((S_total + ts - 1) / ts, B);
+  kern<<<grid, ts, smem_bytes, (cudaStream_t)stream>>>(
       g0p, g1p, ft_in, ft_out, mask, sw, limits, inv_counts, sq_part, B, P,
-      S_total, T);
+      S_total, T, aligned);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM the runtime reports for this launch shape, or the
+// negated CUDA error code.
+WG_EXPORT int wg_sites_chunk_occupancy(int device, int warps, int smem_bytes,
+                                       int fast_math) {
+  SitesKernel kern = sites_kernel(warps, fast_math);
+  if (kern == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      32 * warps, smem_bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }

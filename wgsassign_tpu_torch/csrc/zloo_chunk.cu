@@ -8,104 +8,210 @@
 // at every site; its kept-site mask sw[b] enters only the squared-update
 // partials sq[t, b] = sum_s (d * d * sw[b, s]).
 //
-// What bounds it on an H100: as loo_chunk.cu, per site and iteration each
-// problem sums n_real - 1 weights against 8 n_real bytes of GLs read once
-// per chunk: compute-bound.  The member tile takes 8 * n_real * S bytes of
-// shared memory and the per-warp sq partials 4 * (S / 32) * T * B bytes;
-// at the smallest tile (S = 32 sites) the wrapper raises above
-// max_zloo_members(T, B) members (900 at T = 8, B = 64).
+// What bounds it on an H100: operations, as loo_chunk.cu.  Per site and
+// iteration each problem sums n_real - 1 weights against 8 n_real bytes of
+// GLs read once per chunk, and the rounding contract (common.cuh) makes a
+// weight ~23 instruction slots: the float32 pipe is the limit long before memory.
 //
-// Design: one thread per site; a block stages its [n_real, S] tile of the
-// site-minor member panels in shared memory ONCE and loops over the B
-// problems inside the block (the TPU kernel re-fetched the panel per grid
-// step, a Mosaic limit).  Each problem's f stays in a register for its T
-// iterations.  Members are summed in ascending order, the left-out one and
-// the padding rows skipped (the TPU kernel multiplies them by 0, which
-// adds exactly 0).  Problems whose limit is 0 are copied through.  The
-// per-iteration partials are reduced per warp with shuffles and per block
-// in a fixed order into sq_part[block, T, B]; no float atomics.
+// Design: loo_chunk.cu's, with the left-out members taken from an array.
+// - A block owns 32 consecutive sites and stages their [n_real, 32] tile of
+//   both member panels once (common.cuh::stage_member_tile: 16-byte
+//   cp.async where rows are 16-byte aligned).  The tile is all the shared
+//   memory the block takes, 8 n_real bytes a site whatever B and T: at most
+//   908 members, where the wrapper raises.
+// - A lane is a site; a warp carries a tile of JB problems through the
+//   member loop at once (common.cuh::loo_members: one GL read feeds JB
+//   weights, JB divide chains side by side), and the block's warps take the
+//   problem tiles round-robin.  A problem belongs to one warp, so
+//   sq[t, b] = warp_sum(d * d * sw) is one shuffle reduction and needs no
+//   scratch in shared memory.
+// - Problems are visited in the caller's `order`: by limit, largest first
+//   (stable).  So the problems still running form a prefix of every tile at
+//   every iteration, finished problems gather in the last tiles, and only
+//   one tile is ragged.  A prefix of n problems runs the n-wide member loop
+//   (n = 1 .. JB, one instantiation each): nothing is computed for a
+//   problem past its limit, and no tile falls back to one problem at a time.
+// - The left-out rows are run-time values, so the member loop is split at
+//   the running problems' own [min leave, max leave]: no test before and
+//   after it; inside, a problem's left-out member adds an exact 0.0f by a
+//   select.  That is right for any `leave` (repeated, descending, or out of
+//   [0, n_real), which leaves nothing out) and narrow where `leave` ascends
+//   with the problem index, as on the z-score path.  Members are summed in
+//   ascending order, as the plain twin does.
+// - A problem whose limit is 0 is copied through; its sw is never read.
+// - Each warp's lane 0 writes its per-iteration sums into
+//   sq_part[block, T, B]; the caller sums the blocks in one fixed order.  No
+//   float atomics: the convergence decision reads these sums.
 #include "common.cuh"
 
+#ifndef WG_ZLOO_JB
+#define WG_ZLOO_JB 4
+#endif
+
+namespace {
+
+constexpr int JB = WG_ZLOO_JB;  // ops/zloo_chunk.py::ZLOO_PROBLEM_TILE
+
+// One update of the first NB problems of a tile (lv: their left-out rows,
+// each in [0, n_real], n_real leaving nothing out).
+template <bool FAST, int NB>
+__device__ __forceinline__ void zloo_update(
+    const float* __restrict__ sg0, const float* __restrict__ sg1, int n_real,
+    float inv, bool real, const int (&lv)[JB], float (&f)[JB],
+    float (&d)[JB]) {
+  int j[NB];
+  float fq[NB], acc[NB];
+  int m0 = n_real, m1 = 0;
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    j[q] = lv[q];
+    fq[q] = f[q];
+    acc[q] = 0.0f;
+    m0 = min(m0, j[q]);
+    m1 = max(m1, j[q] + 1);
+  }
+  m1 = max(min(m1, n_real), m0);
+  loo_members<FAST, NB, false>(sg0, sg1, 0, m0, j, fq, acc);
+  loo_members<FAST, NB, true>(sg0, sg1, m0, m1, j, fq, acc);
+  loo_members<FAST, NB, false>(sg0, sg1, m1, n_real, j, fq, acc);
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const float f_new = em_clip(acc[q] * inv);
+    d[q] = real ? f_new - fq[q] : 0.0f;
+    f[q] = f_new;
+  }
+}
+
+// The update of a running prefix of n_run problems, 1 <= n_run <= NB.
+template <bool FAST, int NB>
+__device__ __forceinline__ void zloo_update_prefix(
+    int n_run, const float* __restrict__ sg0, const float* __restrict__ sg1,
+    int n_real, float inv, bool real, const int (&lv)[JB], float (&f)[JB],
+    float (&d)[JB]) {
+  if (n_run == NB) {
+    zloo_update<FAST, NB>(sg0, sg1, n_real, inv, real, lv, f, d);
+  } else if constexpr (NB > 1) {
+    zloo_update_prefix<FAST, NB - 1>(n_run, sg0, sg1, n_real, inv, real, lv,
+                                     f, d);
+  }
+}
+
 template <bool FAST>
-__global__ void zloo_chunk_kernel(
+__global__ void __launch_bounds__(256) zloo_chunk_kernel(
     const float* __restrict__ g0p, const float* __restrict__ g1p,
     const float* __restrict__ ft_in, float* __restrict__ ft_out,
     const float* __restrict__ sw, const int* __restrict__ leave,
-    const float* __restrict__ limits, float* __restrict__ sq_part,
-    int B, int M, int n_real, int T) {
-  extern __shared__ float smem[];
-  const int S = blockDim.x;
+    const int* __restrict__ order, const float* __restrict__ limits,
+    float* __restrict__ sq_part, int B, int M, int n_real, int T,
+    int aligned) {
+  extern __shared__ float4 smem4[];
+  float* sg0 = reinterpret_cast<float*>(smem4);  // [n_real][32]
+  float* sg1 = sg0 + n_real * WG_TILE_SITES;     // [n_real][32]
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = S >> 5;
-  const int TB = T * B;
-
-  float* sg0 = smem;                // [n_real][S]
-  float* sg1 = sg0 + n_real * S;    // [n_real][S]
-  float* ssq = sg1 + n_real * S;    // [n_warps][T * B]
-
-  const long long s = (long long)blockIdx.x * S + tid;
+  const int n_warps = blockDim.x >> 5;
+  const long long s0 = (long long)blockIdx.x * WG_TILE_SITES;
+  const long long s = s0 + lane;
   const bool real = s < M;
 
-  for (int i = 0; i < n_real; ++i) {
-    sg0[i * S + tid] = real ? g0p[(long long)i * M + s] : 1.0f;
-    sg1[i * S + tid] = real ? g1p[(long long)i * M + s] : 0.0f;
-  }
+  stage_member_tile(g0p, g1p, sg0, sg1, n_real, M, s0, aligned, lane, warp,
+                    n_warps, real, s);
   __syncthreads();
+  sg0 += lane;
+  sg1 += lane;
 
   const float inv = 1.0f / ((float)n_real - 1.0f);
-  for (int b = 0; b < B; ++b) {
-    const float lim = __ldg(limits + b);
-    const int lv = __ldg(leave + b);
-    const long long row = (long long)b * M + s;
-    float f = real ? ft_in[row] : WG_EM_LO;
-    const float w_site = real ? sw[row] : 0.0f;
-    for (int t = 0; t < T; ++t) {
-      float d = 0.0f;
-      if (lim > (float)t) {  // uniform across the block
-        float acc = 0.0f;
-        for (int i = 0; i < n_real; ++i) {
-          if (i == lv) continue;
-          const float a = sg0[i * S + tid];
-          const float c = sg1[i * S + tid];
-          acc += em_w<FAST>(a, c, 1.0f - a - c, f);
-        }
-        const float f_new = em_clip(acc * inv);
-        d = real ? f_new - f : 0.0f;
-        f = f_new;
-      }
-      const float v = warp_sum(d * d * w_site);
-      if (lane == 0) ssq[warp * TB + t * B + b] = v;
+  const int n_tiles = (B + JB - 1) / JB;
+  for (int tile = warp; tile < n_tiles; tile += n_warps) {
+    int b[JB], lv[JB];
+    float f[JB], lim[JB], w_site[JB];
+#pragma unroll
+    for (int q = 0; q < JB; ++q) {
+      const bool valid = tile * JB + q < B;
+      b[q] = valid ? __ldg(order + tile * JB + q) : -1;
+      lim[q] = valid ? __ldg(limits + b[q]) : 0.0f;
+      const int l = valid ? __ldg(leave + b[q]) : n_real;
+      lv[q] = (l >= 0 && l < n_real) ? l : n_real;
+      const bool load = valid && real;
+      f[q] = load ? ft_in[(long long)b[q] * M + s] : WG_EM_LO;
+      w_site[q] = (load && lim[q] > 0.0f) ? sw[(long long)b[q] * M + s] : 0.0f;
     }
-    if (real) ft_out[row] = f;
-  }
-  __syncthreads();
-  for (int e = tid; e < TB; e += S) {
-    float v = 0.0f;
-    for (int w = 0; w < n_warps; ++w) v += ssq[w * TB + e];
-    sq_part[(long long)blockIdx.x * TB + e] = v;
+
+    for (int t = 0; t < T; ++t) {
+      const float tf = (float)t;
+      // limits descend along `order`: the running problems are a prefix
+      int n_run = 0;
+#pragma unroll
+      for (int q = 0; q < JB; ++q) n_run += lim[q] > tf;
+      float d[JB];
+#pragma unroll
+      for (int q = 0; q < JB; ++q) d[q] = 0.0f;
+      if (n_run > 0) {
+        zloo_update_prefix<FAST, JB>(n_run, sg0, sg1, n_real, inv, real, lv,
+                                     f, d);
+      }
+#pragma unroll
+      for (int q = 0; q < JB; ++q) {
+        if (b[q] < 0) continue;
+        const float v =
+            (q < n_run) ? warp_sum(d[q] * d[q] * w_site[q]) : 0.0f;
+        if (lane == 0) {
+          sq_part[((long long)blockIdx.x * T + t) * B + b[q]] = v;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < JB; ++q) {
+      if (b[q] >= 0 && real) ft_out[(long long)b[q] * M + s] = f[q];
+    }
   }
 }
+
+using ZlooKernel = void (*)(const float*, const float*, const float*, float*,
+                            const float*, const int*, const int*,
+                            const float*, float*, int, int, int, int, int);
+
+ZlooKernel zloo_kernel(int fast_math) {
+  return fast_math ? zloo_chunk_kernel<true> : zloo_chunk_kernel<false>;
+}
+
+}  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 WG_EXPORT int wg_zloo_chunk(int device, const float* g0p, const float* g1p,
                             const float* ft_in, float* ft_out,
                             const float* sw, const int* leave,
-                            const float* limits, float* sq_part, int B, int M,
-                            int n_real, int T, int block_sites,
-                            int smem_bytes, int fast_math, void* stream) {
+                            const int* order, const float* limits,
+                            float* sq_part, int B, int M, int n_real, int T,
+                            int warps, int smem_bytes, int aligned,
+                            int fast_math, void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  void (*kern)(const float*, const float*, const float*, float*,
-               const float*, const int*, const float*, float*, int, int, int,
-               int) =
-      fast_math ? zloo_chunk_kernel<true> : zloo_chunk_kernel<false>;
+  ZlooKernel kern = zloo_kernel(fast_math);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (M + block_sites - 1) / block_sites;
-  kern<<<blocks, block_sites, smem_bytes, (cudaStream_t)stream>>>(
-      g0p, g1p, ft_in, ft_out, sw, leave, limits, sq_part, B, M, n_real, T);
+  const int blocks = (M + WG_TILE_SITES - 1) / WG_TILE_SITES;
+  kern<<<blocks, 32 * warps, smem_bytes, (cudaStream_t)stream>>>(
+      g0p, g1p, ft_in, ft_out, sw, leave, order, limits, sq_part, B, M,
+      n_real, T, aligned);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM the runtime reports for this launch shape, or the
+// negated CUDA error code.
+WG_EXPORT int wg_zloo_chunk_occupancy(int device, int warps, int smem_bytes,
+                                      int fast_math) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  ZlooKernel kern = zloo_kernel(fast_math);
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      32 * warps, smem_bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }

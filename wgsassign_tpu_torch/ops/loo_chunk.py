@@ -120,9 +120,7 @@ def loo_chunk(g0p, g1p, ft, limits, n_real: int, T: int,
         _kernels.check_operand(name, t, dev, _F32, shape)
     warps, smem = loo_chunk_geometry(n_real)
     n_blocks = -(-m // LOO_SITES)
-    # 16-byte copies need every member row of the tile 16-byte aligned
-    aligned = (m % 4 == 0 and g0p.data_ptr() % 16 == 0
-               and g1p.data_ptr() % 16 == 0)
+    aligned = _kernels.rows_aligned(m, g0p, g1p)
     ft_new = torch.empty_like(ft)
     sq_part = torch.empty((n_blocks, T, p), dtype=_F32, device=dev)
     _kernels.launch(

@@ -23,35 +23,51 @@ from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 
 _F32 = torch.float32
 
-# Site tiles tried, largest first: the block stages a [P, S] slice of both
-# of its problem's panels in shared memory.
-SITES_BLOCK_SITES = (128, 64, 32)
+# The kernel's tile (csrc/sites_chunk.cu): a block is one problem and
+# 32 * warps site slots, one thread a site, and stages its [P, tile] slice of
+# the problem's panels in shared memory as SITES_PLANES planes, beside a
+# bitmap of the member mask (8 bytes per 32 members and 8 more).  SITES_WARPS
+# are the block widths the kernel is built for, widest first.
+SITES_WARPS = (4, 2, 1)
+SITES_PLANES = 2
 
 
-def _smem_bytes(p: int, t: int, block_sites: int) -> int:
-    return 4 * (2 * p * block_sites + (block_sites // 32) * t)
+def _smem_bytes(p: int, warps: int) -> int:
+    words = -(-p // 32)
+    return 4 * (SITES_PLANES * p * 32 * warps + 2 * words + 2)
 
 
-def max_sites_members(t: int) -> int:
-    """Largest member panel (P rows) whose slice fits the smallest site
-    tile at chunk length ``t``: 907 at t = 8."""
-    s = SITES_BLOCK_SITES[-1]
-    return (_kernels.SMEM_LIMIT // 4 - (s // 32) * t) // (2 * s)
+def max_sites_members() -> int:
+    """Largest member panel (P rows) whose slice of the narrowest tile fits
+    in shared memory: 907, whatever the chunk length and the number of
+    problems."""
+    warps = SITES_WARPS[-1]
+    p = _kernels.SMEM_LIMIT // (4 * SITES_PLANES * 32 * warps)
+    while _smem_bytes(p, warps) > _kernels.SMEM_LIMIT:
+        p -= 1
+    return p
 
 
-def sites_chunk_geometry(p: int, t: int) -> tuple:
-    """``(block_sites, smem_bytes)``: the widest site tile whose panel
-    slice fits in shared memory.  Raises ValueError above the bound."""
-    for s in SITES_BLOCK_SITES:
-        smem = _smem_bytes(p, t, s)
-        if smem <= _kernels.SMEM_LIMIT:
-            return s, smem
-    raise ValueError(
-        f"sites_chunk: a member panel of {p} rows exceeds the kernel's bound "
-        f"of {max_sites_members(t)} members at chunk length {t} (the panel "
-        f"slice of {SITES_BLOCK_SITES[-1]} sites must fit in "
-        f"{_kernels.SMEM_LIMIT} bytes of shared memory)"
-    )
+def sites_chunk_geometry(p: int) -> tuple:
+    """``(warps, smem_bytes)`` of a block: the width with the most warps
+    resident on an SM (at most 32 blocks and 64 warps; 1 KB of shared memory
+    reserved a block), the widest on a tie, since wider tiles make fewer
+    blocks to launch.  Raises ValueError above the member bound."""
+    def resident(w):
+        blocks = max(1, _kernels.SMEM_LIMIT // (_smem_bytes(p, w) + 1024))
+        return min(64, w * min(32, blocks))
+
+    fits = [w for w in SITES_WARPS
+            if _smem_bytes(p, w) <= _kernels.SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"sites_chunk: a member panel of {p} rows exceeds the kernel's "
+            f"bound of {max_sites_members()} members (the panel slice of "
+            f"{32 * SITES_WARPS[-1]} sites must fit in {_kernels.SMEM_LIMIT} "
+            "bytes of shared memory)"
+        )
+    warps = max(fits, key=lambda w: (resident(w), w))
+    return warps, _smem_bytes(p, warps)
 
 
 def sites_chunk_twin(g0p, g1p, ft, member_mask, site_weight, limits,
@@ -104,15 +120,16 @@ def sites_chunk(g0p, g1p, ft, member_mask, site_weight, limits, inv_counts,
         ("inv_counts", inv_counts, (b,)),
     ):
         _kernels.check_operand(name, t, dev, _F32, shape)
-    block_sites, smem = sites_chunk_geometry(p, T)
-    n_blocks = -(-s // block_sites)
+    warps, smem = sites_chunk_geometry(p)
+    n_tiles = -(-s // (32 * warps)) * warps  # one row of partials a warp
+    aligned = _kernels.rows_aligned(s, g0p, g1p)
     ft_new = torch.empty_like(ft)
-    sq_part = torch.empty((n_blocks, T, b), dtype=_F32, device=dev)
+    sq_part = torch.empty((n_tiles, T, b), dtype=_F32, device=dev)
     _kernels.launch(
         "sites_chunk", dev, g0p.data_ptr(), g1p.data_ptr(), ft.data_ptr(),
         ft_new.data_ptr(), member_mask.data_ptr(), site_weight.data_ptr(),
         limits.data_ptr(), inv_counts.data_ptr(), sq_part.data_ptr(), b, p, s,
-        T, block_sites, smem, int(bool(fast_math)),
+        T, warps, smem, int(aligned), int(bool(fast_math)),
     )
     sq = torch.sum(sq_part, dim=0, dtype=torch.float64).to(_F32)
     return ft_new, sq

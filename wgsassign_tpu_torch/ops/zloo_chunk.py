@@ -24,36 +24,54 @@ from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 
 _F32 = torch.float32
 
-# Site tiles tried, largest first: the block stages an [n_real, S] tile of
-# both GL panels in shared memory.
-ZLOO_BLOCK_SITES = (128, 64, 32)
+# The kernel's tile (csrc/zloo_chunk.cu), the one of ``loo_chunk``: a block
+# stages the [n_real, 32] tile of both GL panels in shared memory; a warp
+# carries ZLOO_PROBLEM_TILE problems through the member loop at once, and the
+# block's warps take the problem tiles round-robin.
+ZLOO_SITES = 32
+ZLOO_PROBLEM_TILE = 4
+ZLOO_MAX_WARPS = 8
 
 
-def _smem_bytes(n_real: int, b: int, t: int, block_sites: int) -> int:
-    return 4 * (2 * n_real * block_sites + (block_sites // 32) * t * b)
+def _smem_bytes(n_real: int) -> int:
+    return 4 * 2 * n_real * ZLOO_SITES
 
 
-def max_zloo_members(t: int, b: int) -> int:
-    """Largest population (n_real members) whose member tile fits the
-    smallest site tile beside the sq partials of ``b`` problems at chunk
-    length ``t``: 900 at t = 8, b = 64."""
-    s = ZLOO_BLOCK_SITES[-1]
-    return (_kernels.SMEM_LIMIT // 4 - (s // 32) * t * b) // (2 * s)
+def max_zloo_members() -> int:
+    """Largest population whose [n_real, 32] member tile fits in shared
+    memory: 908, whatever the chunk length and the number of problems."""
+    return _kernels.SMEM_LIMIT // (4 * 2 * ZLOO_SITES)
 
 
-def zloo_chunk_geometry(n_real: int, b: int, t: int) -> tuple:
-    """``(block_sites, smem_bytes)``: the widest site tile whose member
-    panel fits in shared memory.  Raises ValueError above the bound."""
-    for s in ZLOO_BLOCK_SITES:
-        smem = _smem_bytes(n_real, b, t, s)
-        if smem <= _kernels.SMEM_LIMIT:
-            return s, smem
-    raise ValueError(
-        f"zloo_chunk: a population of {n_real} members exceeds the kernel's "
-        f"bound of {max_zloo_members(t, b)} members at chunk length {t} "
-        f"and {b} problems (the member tile of {ZLOO_BLOCK_SITES[-1]} sites "
-        f"must fit in {_kernels.SMEM_LIMIT} bytes of shared memory)"
-    )
+def zloo_chunk_geometry(n_real: int, b: int) -> tuple:
+    """``(warps, smem_bytes)`` of a block.  The ``b`` problems make
+    ``ceil(b / ZLOO_PROBLEM_TILE)`` tiles, the last one ragged, taken
+    round-robin by the block's warps.  The warp count (at most
+    ZLOO_MAX_WARPS) is the one with the best product of two estimates: the
+    share of the warps' time that carries a problem (the block lasts as long
+    as its most loaded warp), and the share of 32 resident warps per SM that
+    the shared memory allows; the fewest warps on a tie (13 problems: 3
+    warps with 5, 4 and 4).  Raises ValueError above the member bound."""
+    smem = _smem_bytes(n_real)
+    if smem > _kernels.SMEM_LIMIT:
+        raise ValueError(
+            f"zloo_chunk: a population of {n_real} members exceeds the "
+            f"kernel's bound of {max_zloo_members()} members (the member "
+            f"tile of {ZLOO_SITES} sites must fit in {_kernels.SMEM_LIMIT} "
+            "bytes of shared memory)"
+        )
+    sizes = [min(ZLOO_PROBLEM_TILE, b - lo)
+             for lo in range(0, b, ZLOO_PROBLEM_TILE)]
+    # resident blocks per SM: 32 at most, 1 KB of shared memory reserved each
+    blocks = min(32, max(1, _kernels.SMEM_LIMIT // (smem + 1024)))
+
+    def score(w):
+        busiest = max(1, *(sum(sizes[i::w]) for i in range(w)))
+        return (b / (w * busiest)) * min(1.0, w * blocks / 32)
+
+    top = min(ZLOO_MAX_WARPS, max(1, len(sizes)))
+    warps = max(range(1, top + 1), key=lambda w: (score(w), -w))
+    return warps, smem
 
 
 def zloo_chunk_twin(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
@@ -91,7 +109,8 @@ def zloo_chunk(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
         padding.
       ft: float32 ``[B, M]`` per-problem AF.
       sw: float32 ``[B, M]`` per-problem kept-site masks (0 on padding).
-      leave: int32 ``[B]`` member row each problem leaves out.
+      leave: int32 ``[B]`` member row each problem leaves out (a row
+        outside ``[0, n_real)`` leaves nothing out).
       limits: float32 ``[B]`` per-problem update limits (<= T).
       n_real: real member count (<= np_pad); the divisor is ``n_real - 1``.
 
@@ -113,15 +132,20 @@ def zloo_chunk(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
         ("leave", leave, torch.int32, (b,)), ("limits", limits, _F32, (b,)),
     ):
         _kernels.check_operand(name, t, dev, dtype, shape)
-    block_sites, smem = zloo_chunk_geometry(n_real, b, T)
-    n_blocks = -(-m // block_sites)
+    warps, smem = zloo_chunk_geometry(n_real, b)
+    n_blocks = -(-m // ZLOO_SITES)
+    aligned = _kernels.rows_aligned(m, g0p, g1p)
+    # the kernel visits the problems by limit, largest first: the problems
+    # still running then form a prefix of each of its problem tiles
+    order = torch.argsort(limits, descending=True, stable=True).to(
+        torch.int32)
     ft_new = torch.empty_like(ft)
     sq_part = torch.empty((n_blocks, T, b), dtype=_F32, device=dev)
     _kernels.launch(
         "zloo_chunk", dev, g0p.data_ptr(), g1p.data_ptr(), ft.data_ptr(),
-        ft_new.data_ptr(), sw.data_ptr(), leave.data_ptr(),
-        limits.data_ptr(), sq_part.data_ptr(), b, m, n_real, T, block_sites,
-        smem, int(bool(fast_math)),
+        ft_new.data_ptr(), sw.data_ptr(), leave.data_ptr(), order.data_ptr(),
+        limits.data_ptr(), sq_part.data_ptr(), b, m, n_real, T, warps, smem,
+        int(aligned), int(bool(fast_math)),
     )
     sq = torch.sum(sq_part, dim=0, dtype=torch.float64).to(_F32)
     return ft_new, sq
