@@ -37,7 +37,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
 9. parity on the card at 100,000 sites: assignment log-likelihoods and Ne
    on the card against the CPU, streamed ingest against the in-memory
    cohort (bit for bit), and ``--debug_checks`` raising on a malformed GL
-   triple.
+   triple;
+10. several ranks, one process each, started through the
+   ``WGSA_COORDINATOR_ADDRESS`` / ``WGSA_NUM_PROCESSES`` /
+   ``WGSA_PROCESS_ID`` variables (with one card both ranks share ``cuda:0``
+   and their collectives go over gloo; with two or more each rank has its
+   own card and they go over NCCL; the phase prints which): (a) phase 4's
+   command on two ranks against phase 4: equal EM iterations per population
+   and per LOO problem, ``.pop_af.npy`` byte for byte, LOO log-likelihoods
+   to rtol 1e-6 with identical argmax, and each rank's ``em_chunk`` and
+   ``loo_chunk`` launches equal to phase 4's; (b) both z-score flags on two
+   ranks at 100,000 sites against the one-rank run of the same file: equal
+   loci and EM iterations, z to atol 5e-4 (float32 sums over ~86,000 kept
+   sites in another order); (c) a population of 909 members,
+   one above the ``loo_chunk`` kernel's bound, through ``leave_one_out`` on
+   the card: the warning is logged, the engine is reported as the plain op,
+   and the result agrees with the CPU run's.  A failed rank, a rank that
+   outlasts its time limit or a mismatch fails the script.
+
+``python3 chip_smoke.py --rank-worker SPEC.json`` is one such rank (phase 10
+starts it; it reads its rank from the three variables).  ``python3
+chip_smoke.py --ranks-only [SITES]`` is a shorter run for work on phase 10:
+phases 1, 2, 4 and 10 with phase 4's file cut to SITES sites (default
+100,000); it prints no result line.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4, 6a or 6b), its largest difference from the twin, both
@@ -49,7 +71,9 @@ exits non-zero and prints no result.
 
 import contextlib
 import json
+import logging
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -72,6 +96,22 @@ Z_ATOL = 2e-3
 NE_RTOL, NE_ATOL = 1e-5, 1e-4
 # mixture proportions: each row sums to 1 (float32 text in the files)
 MIX_ATOL = 1e-5
+# several ranks against one: the LOO log-likelihood sums are float64 sums of
+# the same float32 terms, split in two.  The three z sums are float32 sums
+# per rank over ~86,000 kept sites of 100,000 (|w| ~ 1e5, so each carries a
+# rounding error of ~1e-3 to 1e-2 that the one-rank sum has too, in another
+# order); on z = (w_obs - w_mu) / sqrt(w_var) that is ~1e-4: 1.07e-4 was
+# measured on an H100.  tests/test_torch_distributed.py holds 1e-4 at 600
+# sites; phase 7 holds the kernels to their twins at 2e-3.
+RANKS_LL_RTOL, RANKS_Z_ATOL = 1e-6, 5e-4
+RANKS = 2
+RANKS_WAIT_S = 300  # of one phase's rank processes
+# phase 10c: one member above the loo_chunk kernel's bound of 908, beside a
+# small population.  The plain op loops over the members, and the CPU run it
+# is compared with takes ~19 ms a member, iteration and 1,024 sites on an
+# H100 host's 8 cores (280.6 s at 4,096 sites and 4 iterations): so 2,048
+# sites and 2 iterations
+BIG_POP, SMALL_POP, M_BIG, BIG_ITERS = 909, 11, 2048, 2
 
 # The card's published peaks (H100 SXM): float32 outside the tensor cores,
 # and device memory.  A kernel's bound is the larger of its operations over
@@ -446,7 +486,9 @@ def main_path(results):
     phase("4b main-path", t0, wall_s=f"{wall:.3f}",
           launches=json.dumps(counts, sort_keys=True),
           phases_s=json.dumps(phases, sort_keys=True))
-    return counts, dict(timer.totals)
+    iters = {"af_iters": timer.results["reference_af"].iters.tolist(),
+             "loo_iters": timer.results["loo"].iters.tolist()}
+    return counts, dict(timer.totals), iters
 
 
 def parity(dev):
@@ -736,7 +778,7 @@ def analyses_parity(dev):
 
     from wgsassign_tpu_torch.io.beagle import BeagleData, read_beagle
     from wgsassign_tpu_torch.io.ids import population_map
-    from wgsassign_tpu_torch.io.synth import synth_beagle_file, synth_cohort
+    from wgsassign_tpu_torch.io.synth import synth_cohort
     from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
     from wgsassign_tpu_torch.models.common import stream_to_device, to_device
     from wgsassign_tpu_torch.models.ne import effective_sample_sizes
@@ -770,11 +812,7 @@ def analyses_parity(dev):
         np.testing.assert_allclose(g, w, rtol=NE_RTOL, atol=NE_ATOL)
         info[f"ne_{name}_max_abs_err"] = float(np.abs(g - w).max())
 
-    path = os.path.join(WORK, f"synth_M{M_PARITY}_stream.beagle.gz")
-    if not os.path.exists(path):
-        synth_beagle_file(path + ".tmp", M_PARITY, N_MAIN, n_pops=K_MAIN,
-                          seed=SEED + 2)
-        os.replace(path + ".tmp", path)
+    path = parity_stream_file()
     full = read_beagle(path)
     keep = np.arange(M_PARITY) % 7 != 3
     rows = np.flatnonzero(keep)
@@ -806,8 +844,335 @@ def analyses_parity(dev):
     phase("9 analyses-parity", t0, M=M_PARITY, **info)
 
 
+def parity_stream_file():
+    """The 100,000-site Beagle file of phases 9 and 10b (seed ``SEED + 2``,
+    one generator chunk)."""
+    from wgsassign_tpu_torch.io.synth import synth_beagle_file
+
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, f"synth_M{M_PARITY}_stream.beagle.gz")
+    if not os.path.exists(path):
+        synth_beagle_file(path + ".tmp", M_PARITY, N_MAIN, n_pops=K_MAIN,
+                          seed=SEED + 2)
+        os.replace(path + ".tmp", path)
+    return path
+
+
+def rank_worker(spec_path):
+    """One rank of phase 10: the CLI with the spec's arguments, as the rank
+    the ``WGSA_*`` variables name.  Writes ``<result>.rank<r>.json``: its
+    kernel launches, phase seconds and per-problem results."""
+    sys.path.insert(0, ROOT)
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.cli import main as cli_main
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["WGSA_PROCESS_ID"])
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    with open(f"{spec['result']}.rank{rank}.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        timer = cli_main(spec["argv"])
+    out = {"wall_s": time.perf_counter() - t0,
+           "launches": dict(_kernels.launches),
+           "totals": dict(timer.totals), "mesh": timer.results["mesh"]}
+    if "reference_af" in timer.results:
+        out["af_iters"] = timer.results["reference_af"].iters.tolist()
+    if "loo" in timer.results:
+        out["loo_iters"] = timer.results["loo"].iters.tolist()
+        out["loo_engines"] = list(timer.results["loo"].engines)
+    for key in ("reference_z", "assignment_z"):
+        if key in timer.results:
+            res = timer.results[key]
+            out[key] = {"loci": res.loci.tolist(),
+                        "em_iters": res.em_iters.tolist(),
+                        "structure": res.structure, "engine": res.engine}
+    with open(f"{spec['result']}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_ranks(name, argv, world=RANKS, wait_s=RANKS_WAIT_S):
+    """Start ``world`` rank processes of this script on ``argv`` through the
+    ``WGSA_*`` variables, wait at most ``wait_s`` seconds for all, and return
+    their result dicts in rank order.  A rank that fails or outlasts the
+    limit stops the others and raises."""
+    result = os.path.join(WORK, name)
+    spec_path = result + ".spec.json"
+    with open(spec_path, "w") as f:
+        json.dump({"argv": argv, "result": result}, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, errs = [], []
+    for rank in range(world):
+        env = dict(os.environ, WGSA_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   WGSA_NUM_PROCESSES=str(world), WGSA_PROCESS_ID=str(rank),
+                   WGSA_COLLECTIVE_TIMEOUT=str(wait_s))
+        errs.append(open(f"{result}.rank{rank}.err", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             spec_path], env=env, stdout=errs[-1], stderr=errs[-1]))
+    deadline = time.monotonic() + wait_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"{name}: a rank outlasted {wait_s} s (hung collective?)")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in errs:
+            f.close()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"{result}.rank{rank}.err") as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(
+                f"{name}: rank {rank} exited with {p.returncode}:\n{tail}")
+    out = []
+    for rank in range(world):
+        with open(f"{result}.rank{rank}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def ranks_main_path(main_counts, main_totals, main_iters):
+    """Phase 10a: phase 4's command on two ranks, against phase 4."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    beagle, ids = synth_file(M_MAIN, N_MAIN, K_MAIN, SEED)
+    main = os.path.join(WORK, "main")
+    out = os.path.join(WORK, "r10a")
+    t0 = time.perf_counter()
+    ranks = run_ranks("r10a", ["--beagle", beagle, "--pop_af_IDs", ids,
+                               "--get_reference_af", "--loo", "-o", out])
+    wall = time.perf_counter() - t0
+    mesh = ranks[0]["mesh"]
+    want_backend = "nccl" if torch.cuda.device_count() >= RANKS else "gloo"
+    if mesh["world"] != RANKS or mesh["backend"] != want_backend:
+        raise AssertionError(f"10a: mesh {mesh}, wanted {RANKS} ranks over "
+                             f"{want_backend}")
+    devices = [r["mesh"]["device"] for r in ranks]
+    for r in ranks:
+        if r["af_iters"] != ranks[0]["af_iters"] \
+                or r["loo_iters"] != ranks[0]["loo_iters"]:
+            raise AssertionError("10a: the ranks disagree on EM iterations")
+        if set(r["loo_engines"]) != {"loo_chunk"}:
+            raise AssertionError(f"10a: LOO engines {r['loo_engines']}")
+    af_off = [a - b for a, b in zip(ranks[0]["af_iters"],
+                                    main_iters["af_iters"])]
+    loo_off = np.asarray(ranks[0]["loo_iters"]) - np.asarray(
+        main_iters["loo_iters"])
+    # the one allowed difference: the sum of sq over two ranks rounds
+    # differently from one rank's, so an RMSE within rounding of the
+    # tolerance may cross one iteration apart
+    if max(map(abs, af_off)) > 1 or np.abs(loo_off).max() > 1:
+        raise AssertionError(f"10a: EM iterations differ from phase 4's by "
+                             f"more than one: {af_off}, {loo_off.tolist()}")
+    exact = not any(af_off) and not loo_off.any()
+    if exact:
+        if not same_bytes(out + ".pop_af.npy", main + ".pop_af.npy"):
+            raise AssertionError("10a: .pop_af.npy differs from phase 4's")
+        for rank, r in enumerate(ranks):
+            for name in paths_kernels("4"):
+                if name != "probe" and (r["launches"].get(name)
+                                        != main_counts.get(name)):
+                    raise AssertionError(
+                        f"10a: rank {rank} launched {name} "
+                        f"{r['launches'].get(name, 0)} times, phase 4 "
+                        f"{main_counts.get(name, 0)}")
+    af_err = float(np.abs(np.load(out + ".pop_af.npy")
+                          - np.load(main + ".pop_af.npy")).max())
+    if af_err > AF_ATOL:
+        raise AssertionError(f"10a: pop_af differs from phase 4's by {af_err}")
+    got = pd.read_csv(out + ".pop_like_LOO.tsv", sep="\t")
+    want = pd.read_csv(main + ".pop_like_LOO.tsv", sep="\t")
+    ll_g, ll_w = got.iloc[:, 2:].to_numpy(), want.iloc[:, 2:].to_numpy()
+    if not got.iloc[:, :2].equals(want.iloc[:, :2]):
+        raise AssertionError("10a: LOO tsv labels differ from phase 4's")
+    np.testing.assert_allclose(ll_g, ll_w, rtol=RANKS_LL_RTOL if exact
+                               else LL_RTOL, atol=0 if exact else LL_ATOL)
+    if not np.array_equal(ll_g.argmax(1), ll_w.argmax(1)):
+        raise AssertionError("10a: LOO assignments (argmax) differ")
+    keys = ("parse", "h2d", "reference_af", "loo")
+    phase("10a ranks-main-path", t0, wall_s=f"{wall:.3f}", ranks=RANKS,
+          backend=mesh["backend"], devices=",".join(devices),
+          iterations=("equal_to_phase_4" if exact else
+                      f"tol_exception:af={af_off},loo_problems_off_by_one="
+                      f"{int(np.abs(loo_off).sum())}"),
+          pop_af="same_bytes_as_4" if exact else f"max_abs_err={af_err}",
+          ll_max_rel_err=float(np.abs(ll_g / ll_w - 1).max()),
+          launches_per_rank=json.dumps(
+              [r["launches"] for r in ranks], sort_keys=True),
+          **{f"rank{i}_s": json.dumps(
+              {k: round(r["totals"].get(k, 0.0), 3) for k in keys},
+              sort_keys=True) for i, r in enumerate(ranks)},
+          rank_cli_wall_s=",".join(f"{r['wall_s']:.3f}" for r in ranks),
+          phase4_s=json.dumps({k: round(main_totals.get(k, 0.0), 3)
+                               for k in keys}, sort_keys=True))
+
+
+def ranks_zscore():
+    """Phase 10b: both z-score flags on two ranks at 100,000 sites, against
+    the one-rank run of the same file."""
+    import numpy as np
+
+    from wgsassign_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    beagle = parity_stream_file()
+    _, ids = synth_file(M_MAIN, N_MAIN, K_MAIN, SEED)  # Ind{i} pop{i % K}
+    ad = beagle[: -len(".beagle.gz")] + ".ad.txt"
+    if not os.path.exists(ad):
+        write_synth_ad(ad + ".tmp", M_PARITY, N_MAIN, K_MAIN, SEED + 2)
+        os.replace(ad + ".tmp", ad)
+    one = os.path.join(WORK, "r10b_one")
+    z_flags = ["--beagle", beagle, "--pop_af_IDs", ids, "--ind_ad_file", ad,
+               "--pop_names", one + ".pop_names.txt", "--pop_af_file",
+               one + ".pop_af.npy", "--get_reference_z_score",
+               "--get_assignment_z_score"]
+    with open(one + ".log", "w") as log, contextlib.redirect_stdout(log):
+        timer = cli_main([*z_flags, "--get_reference_af", "-o", one])
+    one_wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    two = os.path.join(WORK, "r10b")
+    ranks = run_ranks("r10b", [*z_flags, "-o", two])
+    two_wall = time.perf_counter() - t1
+    info = {}
+    for key, suffix in (("reference_z", ".reference_z_ind.txt"),
+                        ("assignment_z", ".z_ind.txt")):
+        want = timer.results[key]
+        for rank, r in enumerate(ranks):
+            if r[key]["loci"] != want.loci.tolist():
+                raise AssertionError(f"10b {key}: rank {rank}'s loci differ")
+            if r[key]["em_iters"] != want.em_iters.tolist():
+                raise AssertionError(f"10b {key}: rank {rank}'s EM "
+                                     "iterations differ")
+        err = float(np.abs(read_z_file(two + suffix, N_MAIN)
+                           - read_z_file(one + suffix, N_MAIN)).max())
+        if not err <= RANKS_Z_ATOL:
+            raise AssertionError(f"10b {key}: z differs by {err}")
+        info[f"{key}_max_abs_err"] = err
+    ref = ranks[0]["reference_z"]
+    if ref["structure"] != "loo-structured" or ref["engine"] != "zloo_chunk":
+        raise AssertionError(f"10b: reference z-score EM {ref}")
+    keys = ("parse", "h2d", "parse_ad", "zscore_tables", "zscore_af",
+            "zscore_sums")
+    phase("10b ranks-zscore", t0, M=M_PARITY, ranks=RANKS,
+          backend=ranks[0]["mesh"]["backend"],
+          one_rank_wall_s=f"{one_wall:.3f}", ranks_wall_s=f"{two_wall:.3f}",
+          loci="equal", em_iters=f"equal:{min(ref['em_iters'])}.."
+          f"{max(ref['em_iters'])}", structure=ref["structure"],
+          launches_per_rank=json.dumps([r["launches"] for r in ranks],
+                                       sort_keys=True),
+          **info,
+          **{f"rank{i}_s": json.dumps(
+              {k: round(r["totals"].get(k, 0.0), 3) for k in keys},
+              sort_keys=True) for i, r in enumerate(ranks)},
+          one_rank_s=json.dumps({k: round(timer.totals.get(k, 0.0), 3)
+                                 for k in keys}, sort_keys=True))
+
+
+def big_population(dev):
+    """Phase 10c: a population one member above the ``loo_chunk`` kernel's
+    bound runs through the model on the card, by the plain op."""
+    import numpy as np
+    import torch
+
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.io.beagle import BeagleData
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.io.synth import synth_cohort
+    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.loo import leave_one_out
+    from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
+    from wgsassign_tpu_torch.ops.loo_chunk import (
+        loo_chunk_geometry,
+        max_loo_members,
+    )
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    t0 = time.perf_counter()
+    if BIG_POP != max_loo_members() + 1:
+        raise AssertionError(f"the loo_chunk bound is {max_loo_members()}")
+    try:
+        loo_chunk_geometry(BIG_POP)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the loo_chunk wrapper accepts 909 members")
+    n = BIG_POP + SMALL_POP
+    gl, _, _ = synth_cohort(M_BIG, n, n_pops=2, seed=SEED + 3)
+    names = [f"Ind{i}" for i in range(n)]
+    labels = np.asarray(["big"] * BIG_POP + ["small"] * SMALL_POP)
+    beagle = BeagleData(gl, names, [f"s{i}" for i in range(M_BIG)])
+    popmap = population_map(names, labels)
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    keep = Keep(level=logging.WARNING)
+    logger = logging.getLogger("wgsassign_tpu")
+    logger.addHandler(keep)
+    try:
+        gpu = to_device(beagle, make_runtime(dev))
+        ref = estimate_reference_af(beagle, popmap, cohort=gpu)
+        _kernels.launches.clear()
+        t_gpu = time.perf_counter()
+        got = leave_one_out(beagle, ref.af, popmap, max_iter=BIG_ITERS,
+                            cohort=gpu, af_t_dev=ref.af_t_dev)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t_gpu
+        counts = dict(_kernels.launches)
+    finally:
+        logger.removeHandler(keep)
+    warned = [r.getMessage() for r in records
+              if r.levelno == logging.WARNING]
+    if not any(f"population big of {BIG_POP} members" in w
+               and f"bound of {max_loo_members()} members" in w
+               for w in warned):
+        raise AssertionError(f"10c: no warning names the population: {warned}")
+    if got.engines != ("plain", "loo_chunk"):
+        raise AssertionError(f"10c: engines {got.engines}")
+    if not counts.get("loo_chunk"):
+        raise AssertionError("10c: the small population never launched "
+                             "loo_chunk")
+    t_cpu = time.perf_counter()
+    want = leave_one_out(beagle, ref.af, popmap, max_iter=BIG_ITERS,
+                         runtime=make_runtime("cpu"))
+    cpu_s = time.perf_counter() - t_cpu
+    if not np.array_equal(got.iters, want.iters):
+        raise AssertionError("10c: EM iterations differ from the CPU run's")
+    if not np.isfinite(got.ll).all():
+        raise AssertionError("10c: non-finite log-likelihoods")
+    np.testing.assert_allclose(got.ll, want.ll, rtol=LL_RTOL, atol=LL_ATOL)
+    if not np.array_equal(got.ll.argmax(1), want.ll.argmax(1)):
+        raise AssertionError("10c: LOO assignments (argmax) differ")
+    phase("10c big-population", t0, members=BIG_POP, sites=M_BIG,
+          em_iterations=BIG_ITERS, engines=",".join(got.engines),
+          warning=repr(warned[0][:60] + "..."),
+          loo_on_card_s=f"{gpu_s:.3f}", loo_on_cpu_s=f"{cpu_s:.3f}",
+          ll_max_abs_err_vs_cpu=float(np.abs(got.ll - want.ll).max()))
+
+
 def main():
     import torch
+    import torch.distributed
+
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2])
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -824,7 +1189,9 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi)
     phase("1 environment", t0, device=repr(torch.cuda.get_device_name(dev)),
-          torch=torch.__version__, cuda=torch.version.cuda)
+          torch=torch.__version__, cuda=torch.version.cuda,
+          device_count=torch.cuda.device_count(),
+          nccl_available=torch.distributed.is_nccl_available())
 
     from wgsassign_tpu_torch import _native
 
@@ -843,6 +1210,17 @@ def main():
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "library_ms": None}
                for name, (src, rep, _) in KERNELS.items()}
+    if sys.argv[1:2] == ["--ranks-only"]:
+        global M_MAIN
+        M_MAIN = int(sys.argv[2]) if len(sys.argv) > 2 else 100_000
+        main_counts, main_totals, main_iters = main_path(results)
+        torch.cuda.empty_cache()
+        ranks_main_path(main_counts, main_totals, main_iters)
+        ranks_zscore()
+        torch.cuda.empty_cache()
+        big_population(dev)
+        print("ranks-only run: phases 3 and 5-9 were skipped")
+        return 0
     t0 = time.perf_counter()
     kernels_vs_twins(dev, results)
     phase("3 kernels-vs-twins", t0, **{
@@ -861,7 +1239,7 @@ def main():
                  if "occupancy" in r else ""), flush=True)
     torch.cuda.empty_cache()
 
-    main_counts, main_totals = main_path(results)
+    main_counts, main_totals, main_iters = main_path(results)
     torch.cuda.empty_cache()
     parity(dev)
     torch.cuda.empty_cache()
@@ -872,6 +1250,11 @@ def main():
     analyses_path(main_counts, main_totals)
     torch.cuda.empty_cache()
     analyses_parity(dev)
+    torch.cuda.empty_cache()
+    ranks_main_path(main_counts, main_totals, main_iters)
+    ranks_zscore()
+    torch.cuda.empty_cache()
+    big_population(dev)
 
     for n, r in results.items():
         print(f"[kernel {n}] launches={r['launches']} on the path of phase "

@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's CLI for the analyses beside the
 main path, on one synthetic 600 x 30 x 3 cohort: ``--get_reference_af
 --ne_obs --loo``, ``--get_pop_like``, the mixture (with no ``--beagle``),
-and the port's ``--profile``, ``--debug_checks`` and unported flags.
+and the port's ``--profile``, ``--debug_checks``, ``--devices 1`` and the
+``--use_pallas``/``--no_pallas`` pair.
 
 Tolerances: the Ne files rtol 1e-5, atol 1e-4 (as tests/test_torch_ne.py);
 ``.pop_like.txt`` rtol 1e-5, atol 2e-3 with identical argmax (as
@@ -21,7 +22,6 @@ torch.set_num_threads(1)
 
 from wgsassign_tpu.cli import main as jax_main
 from wgsassign_tpu.io.synth import synth_cohort, write_beagle
-from wgsassign_tpu_torch.cli import _NOT_PORTED
 from wgsassign_tpu_torch.cli import main as torch_main
 
 M, N, K = 600, 30, 3
@@ -188,12 +188,42 @@ def test_debug_checks_raise_on_a_malformed_triple(files, tmp_path):
                       runtime=make_runtime("cpu", debug_checks=True))
 
 
-def test_only_several_devices_and_pallas_flags_are_not_ported():
-    assert set(_NOT_PORTED) == {"devices", "use_pallas", "no_pallas"}
+def test_every_flag_is_ported():
+    """The port's parser is the JAX CLI's, flag for flag, and the module
+    keeps no list of flags that raise."""
+    import wgsassign_tpu.cli as jax_cli
+    import wgsassign_tpu_torch.cli as torch_cli
+
+    def flags(parser):
+        return {a.dest: (tuple(a.option_strings), a.default)
+                for a in parser._actions}
+
+    assert flags(torch_cli.parser) == flags(jax_cli.parser)
+    assert not hasattr(torch_cli, "_NOT_PORTED")
+    assert not hasattr(torch_cli, "_check_ported")
 
 
-def test_devices_still_raises(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="--devices"):
-        torch_main(["--beagle", files["beagle"], "--get_pop_like",
-                    "--devices", "1", "-o", str(tmp_path / "d")],
-                   device="cpu")
+def test_devices_one_is_one_rank(files, ref_runs, pop_like_runs, tmp_path,
+                                 capsys):
+    prefix = str(tmp_path / "d")
+    torch_main(["--beagle", files["beagle"], "--get_pop_like",
+                "--pop_af_file", ref_runs["jax"] + ".pop_af.npy",
+                "--devices", "1", "-o",
+                prefix], device="cpu")
+    assert "Mesh: 1 rank(s)" in capsys.readouterr().out
+    assert (open(prefix + ".pop_like.txt").read()
+            == open(pop_like_runs["torch"] + ".pop_like.txt").read())
+    assert "-devices 1" in open(prefix + ".args").read()
+
+
+def test_pallas_flags_are_exclusive(files, tmp_path):
+    """Both together raise with the JAX CLI's message."""
+    argv = ["--beagle", files["beagle"], "--get_pop_like", "--use_pallas",
+            "--no_pallas", "-o", str(tmp_path / "p")]
+    errors = []
+    for run, kwargs in ((jax_main, {}), (torch_main, {"device": "cpu"})):
+        with pytest.raises(ValueError) as info:
+            run(argv, **kwargs)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+    assert "mutually exclusive" in errors[1]

@@ -493,3 +493,108 @@ def test_stream_to_device_card_bitmatches(cuda, tmp_path, monkeypatch, keep,
     assert got.m_real == want.m_real
     for name in ("g0", "g1", "site_weight"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def _big_population(m, seed):
+    """909 members (one above the loo_chunk and zloo_chunk bounds) beside a
+    population of 11, with allele depths."""
+    from wgsassign_tpu_torch.io.beagle import BeagleData
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.io.synth import synth_cohort
+
+    n = 909 + 11
+    gl, _, ad = synth_cohort(m, n, n_pops=2, seed=seed)
+    names = [f"Ind{i}" for i in range(n)]
+    beagle = BeagleData(gl, names, [f"s{i}" for i in range(m)])
+    return beagle, population_map(names, ["big"] * 909 + ["small"] * 11), ad
+
+
+def test_loo_of_909_members_runs_the_plain_op_on_the_card(cuda, caplog):
+    """A population the data fits but the kernel's member tile does not:
+    the model warns, runs ``em_maf_loo_group`` on the card for it and the
+    kernel for the other population, and agrees with the CPU run; the
+    wrapper alone still raises (test_loo_chunk_member_bound)."""
+    import logging
+
+    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.loo import leave_one_out
+    from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    assert max_loo_members() == 908
+    beagle, popmap, _ = _big_population(256, 21)
+    cohort = to_device(beagle, make_runtime(cuda))
+    ref = estimate_reference_af(beagle, popmap, cohort=cohort)
+    logger = logging.getLogger("wgsassign_tpu")
+    logger.addHandler(caplog.handler)
+    before = _kernels.launches["loo_chunk"]
+    try:
+        got = leave_one_out(beagle, ref.af, popmap, max_iter=3,
+                            cohort=cohort, af_t_dev=ref.af_t_dev)
+    finally:
+        logger.removeHandler(caplog.handler)
+    assert got.engines == ("plain", "loo_chunk")
+    assert _kernels.launches["loo_chunk"] > before
+    assert any("population big of 909 members" in r.getMessage()
+               and "bound of 908 members" in r.getMessage()
+               for r in caplog.records)
+    want = leave_one_out(beagle, ref.af, popmap, max_iter=3,
+                         runtime=make_runtime("cpu"))
+    assert want.engines == got.engines
+    np.testing.assert_array_equal(got.iters, want.iters)
+    np.testing.assert_allclose(got.ll, want.ll, rtol=1e-5, atol=2e-3)
+    np.testing.assert_array_equal(got.ll.argmax(1), want.ll.argmax(1))
+
+
+def test_reference_z_of_909_members_runs_the_plain_op_on_the_card(cuda):
+    """The same for the z-score EM: the big population's individuals take
+    ``em_maf_loo_subset``, the small one's ``zloo_chunk``."""
+    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.zscore import reference_z_scores
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    assert max_zloo_members() == 908
+    beagle, popmap, ad = _big_population(4096, 22)
+    kw = dict(ind_start=907, ind_end=911, max_iter=3)
+    before = _kernels.launches["zloo_chunk"]
+    got = reference_z_scores(beagle, ad, popmap, **kw,
+                             cohort=to_device(beagle, make_runtime(cuda)))
+    assert got.structure == "loo-structured"
+    assert got.engine == "plain+zloo_chunk"
+    assert _kernels.launches["zloo_chunk"] > before
+    want = reference_z_scores(beagle, ad, popmap, **kw,
+                              runtime=make_runtime("cpu"))
+    np.testing.assert_array_equal(got.loci, want.loci)
+    np.testing.assert_array_equal(got.em_iters, want.em_iters)
+    assert np.isfinite(got.z).all()
+    np.testing.assert_allclose(got.z, want.z, rtol=0, atol=2e-3)
+
+
+def test_no_pallas_runs_no_kernel_on_the_card(cuda):
+    """``use_kernels=False`` (--no_pallas): the plain ops on the card, no
+    EM kernel launched, equal iterations and AF to the kernels' run."""
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.loo import leave_one_out
+    from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle = _beagle(3000, 30, 23)
+    popmap = population_map(beagle.sample_names,
+                            [f"pop{i % 3}" for i in range(30)])
+    runs = {}
+    for use_kernels in (False, None):
+        _kernels.launches.clear()
+        cohort = to_device(beagle, make_runtime(cuda, use_kernels=use_kernels))
+        ref = estimate_reference_af(beagle, popmap, cohort=cohort)
+        loo = leave_one_out(beagle, ref.af, popmap, cohort=cohort,
+                            af_t_dev=ref.af_t_dev)
+        runs[use_kernels] = (ref, loo, dict(_kernels.launches))
+    plain, fused = runs[False], runs[None]
+    assert not plain[2].get("em_chunk") and not plain[2].get("loo_chunk")
+    assert fused[2]["em_chunk"] and fused[2]["loo_chunk"]
+    assert plain[0].engine == "plain" and set(plain[1].engines) == {"plain"}
+    np.testing.assert_array_equal(plain[0].iters, fused[0].iters)
+    np.testing.assert_array_equal(plain[1].iters, fused[1].iters)
+    np.testing.assert_allclose(plain[0].af, fused[0].af, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(plain[1].ll, fused[1].ll, rtol=1e-5, atol=2e-3)

@@ -227,21 +227,88 @@ def test_torch_cli_never_loads_jax(cohort_files, tmp_path):
         assert os.path.exists(sub + suffix), suffix
 
 
-@pytest.mark.parametrize("flags", [
-    # every flag but these three is ported: beside a ported one, an
-    # unported flag still raises
-    ["--devices", "1", "--get_pop_like"], ["--devices", "1", "--ne_obs"],
-    ["--devices", "1", "--stream_ingest", "0", "--get_assignment_z_score"],
-    ["--devices", "1", "--get_reference_z_score"],
-    ["--use_pallas", "--get_em_mix"], ["--no_pallas", "--get_mcmc_mix"],
-    ["--devices", "1", "--stream_ingest", "0"], ["--devices", "1"],
-    ["--use_pallas"], ["--no_pallas"], ["--use_pallas", "--debug_checks"],
-    ["--no_pallas", "--profile", "trace"],
+@pytest.fixture(scope="module")
+def flag_inputs(cohort_files):
+    """What the engine-flag cases below need beside the cohort: an
+    allele-depth file, and a default one-rank run of every analysis the
+    cases add to ``--get_reference_af`` (their outputs are the baseline)."""
+    d = cohort_files["dir"]
+    _, _, ad = synth_cohort(M, N, n_pops=K, seed=0)
+    ad_path = str(d / "cohort.ad.txt")
+    np.savetxt(ad_path, ad, fmt="%d")
+    base = str(d / "flags_base")
+    common = ["--beagle", cohort_files["beagle"], "--pop_af_IDs",
+              cohort_files["ids"]]
+    torch_main([*common, "--get_reference_af", "--ne_obs", "-o", base],
+               device="cpu")
+    inputs = {
+        "common": common, "base": base,
+        "pop_like": ["--pop_af_file", base + ".pop_af.npy"],
+        "z": ["--ind_ad_file", ad_path, "--pop_names",
+              base + ".pop_names.txt", "--pop_af_file", base + ".pop_af.npy"],
+        "mix": ["--pop_like", base + ".pop_like.txt", "--pop_like_IDs",
+                cohort_files["ids"], "--mcmc_seed", "3"],
+    }
+    torch_main([*common, *inputs["z"], "--get_pop_like",
+                "--get_reference_z_score", "--get_assignment_z_score",
+                "-o", base], device="cpu")
+    torch_main([*inputs["mix"], "--get_em_mix", "--get_mcmc_mix", "-o", base],
+               device="cpu")
+    return inputs
+
+
+@pytest.mark.parametrize("flags, needs, outputs", [
+    # the engine flags beside each analysis: --devices 1 is one rank,
+    # --use_pallas the default engine (files byte for byte); --no_pallas the
+    # plain EM ops (AF atol 1e-5, z atol 1e-4)
+    (["--devices", "1", "--get_pop_like"], "pop_like", [".pop_like.txt"]),
+    (["--devices", "1", "--ne_obs"], None,
+     [".ne_obs.npy", ".fisher_obs.npy", ".ne_ind.txt"]),
+    (["--devices", "1", "--stream_ingest", "0", "--get_assignment_z_score"],
+     "z", [".z_ind.txt"]),
+    (["--devices", "1", "--get_reference_z_score"], "z",
+     [".reference_z_ind.txt"]),
+    (["--use_pallas", "--get_em_mix"], "mix", [".em_mix.txt"]),
+    (["--no_pallas", "--get_mcmc_mix"], "mix", [".mcmc_mix.txt"]),
+    (["--devices", "1", "--stream_ingest", "0"], None, []),
+    (["--devices", "1"], None, []),
+    (["--use_pallas"], None, []),
+    (["--no_pallas"], None, []),
+    (["--use_pallas", "--debug_checks"], None, []),
+    (["--no_pallas", "--profile", "trace"], None, []),
+    (["--no_pallas", "--get_reference_z_score"], "z",
+     [".reference_z_ind.txt"]),
 ])
-def test_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match=flags[0]):
-        torch_main(["--get_reference_af", "-o", str(tmp_path / "x"),
-                    *flags], device="cpu")
+def test_engine_flags_run(flags, needs, outputs, flag_inputs, tmp_path,
+                          capsys):
+    """No flag raises ``NotImplementedError``: each combination runs with
+    ``--get_reference_af`` and writes the default run's files."""
+    prefix = str(tmp_path / "x")
+    flags = [str(tmp_path / "trace") if f == "trace" else f for f in flags]
+    torch_main([*flag_inputs["common"], *(flag_inputs[needs] if needs else []),
+                "--get_reference_af", "-o", prefix, *flags], device="cpu")
+    printed = capsys.readouterr().out
+    plain = "--no_pallas" in flags
+    assert f"EM (MAF) engine: {'plain' if plain else 'em_chunk'}" in printed
+    base = flag_inputs["base"]
+    got, want = np.load(prefix + ".pop_af.npy"), np.load(base + ".pop_af.npy")
+    if plain:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+    for suffix in outputs:
+        if suffix.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(prefix + suffix),
+                                          np.load(base + suffix))
+        elif plain and suffix.endswith("z_ind.txt"):
+            np.testing.assert_allclose(np.loadtxt(prefix + suffix),
+                                       np.loadtxt(base + suffix),
+                                       rtol=0, atol=1e-4)
+        else:
+            assert (open(prefix + suffix).read()
+                    == open(base + suffix).read()), suffix
+    if "--profile" in flags:
+        assert os.listdir(tmp_path / "trace")
 
 
 def test_default_device_needs_cuda(cohort_files, tmp_path):

@@ -97,6 +97,18 @@ def test_overlap_rule_keeps_the_jax_package_semantics(monkeypatch):
     assert common._stream_overlap_default() is True
 
 
+@pytest.mark.parametrize("env, want", [
+    ("0", False), ("false", False), ("no", False), ("off", False),
+    ("FALSE", False), ("No", False), ("OFF", False), (" Off ", False),
+    ("1", True), ("true", True), ("TRUE", True), ("on", True),
+])
+def test_overlap_reads_off_words_in_any_case(monkeypatch, env, want):
+    """``0``, ``false``, ``no`` and ``off`` in any case mean off (the JAX
+    package reads only ``0``, ``false`` and ``False`` as off)."""
+    monkeypatch.setenv("WGSA_STREAM_OVERLAP", env)
+    assert common._stream_overlap_default() is want
+
+
 def test_keep_mask_must_cover_the_file(files):
     with pytest.raises(ValueError, match="keep_mask covers"):
         stream_to_device(files["beagle"], make_runtime("cpu"),

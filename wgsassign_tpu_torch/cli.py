@@ -1,5 +1,6 @@
-"""Command-line entry point of the port: every analysis of
-``wgsassign_tpu.cli`` on one process and one GPU.
+"""Command-line entry point of the port: every analysis and every flag of
+``wgsassign_tpu.cli``, on one GPU or on several ranks (one process per GPU,
+the site axis in windows; see :func:`main`).
 
 Takes the reference's flags (``parser`` below, a copy of the argparse
 parser of ``wgsassign_tpu.cli``), runs its sections in the same order --
@@ -13,9 +14,10 @@ with ``--partition_sites``, the partition ``.tsv.gz``; ``.pop_like.txt``;
 ``.mcmc_mix.txt``.  ``--stream_ingest`` streams the Beagle file to the
 device in site blocks; ``--debug_checks`` sanitises the likelihood inputs
 (there is no counterpart of ``jax_debug_nans``); ``--profile DIR`` writes a
-``torch.profiler`` trace.  ``--devices`` (several GPUs, not ported yet) and
-``--use_pallas``/``--no_pallas`` (no counterpart) raise
-``NotImplementedError``; no flag is ignored.
+``torch.profiler`` trace.  ``--no_pallas`` runs the plain EM ops instead of
+the kernels; ``--use_pallas`` asks for what is the default already (the
+kernels on a GPU, their twins through the chunked EM on the CPU).  No
+flag is ignored.
 
 Runs on ``cuda:0`` unless :func:`main` is given another ``device``; without
 CUDA it raises.  ``device="cpu"`` (a Python argument, not a flag) runs the
@@ -156,62 +158,174 @@ parser.add_argument("--log_level", metavar="LEVEL", default=None,
          "also via WGSA_LOG_LEVEL)")
 
 
-# flag -> why it does not run here (ROADMAP.md, "Modules to port")
-_NOT_PORTED = {
-    "devices": "--devices (ROADMAP item 13)",
-    "use_pallas": "--use_pallas (no counterpart: the GPU always runs the "
-                  "CUDA kernels)",
-    "no_pallas": "--no_pallas (no counterpart: the GPU always runs the "
-                 "CUDA kernels)",
-}
-
-
-def _check_ported(args) -> None:
-    defaults = vars(parser.parse_args([]))
-    for dest, what in _NOT_PORTED.items():
-        if getattr(args, dest) != defaults[dest]:
-            raise NotImplementedError(
-                f"{what} is not ported to wgsassign_tpu_torch yet; run it "
-                "with the JAX package (wgsassign-tpu)"
-            )
-
-
 def main(argv=None, device=None):
     """Run the CLI.  ``device`` defaults to ``cuda:0`` and must be given as
-    ``"cpu"`` explicitly to run without a GPU."""
+    ``"cpu"`` explicitly to run without a GPU.
+
+    Several ranks, one process per device, each with a window of the site
+    axis: ``--devices n`` starts ``n`` ranks on this host and waits for
+    them; under ``WGSA_COORDINATOR_ADDRESS``, ``WGSA_NUM_PROCESSES`` and
+    ``WGSA_PROCESS_ID`` (the JAX package's variables) this process is one
+    rank of a run that something else started.  Without either, one rank
+    runs on ``cuda:0`` whatever the host has (the JAX package takes every
+    device by default).  Returns the run's
+    :class:`RunTimer` (None from the parent of ``--devices n`` ranks)."""
     args = parser.parse_args(argv)
     n_args = len(sys.argv) - 1 if argv is None else len(argv)
     if n_args < 1:
         parser.print_help()
         sys.exit()
-    _check_ported(args)
     if args.loo_downsampled_beagle and not args.loo:
         raise ValueError(
             "The --loo_downsampled_beagle option requires that --loo is also specified."
         )
-    print("WGSassign (wgsassign-tpu " + __version__ + ", PyTorch/CUDA port)")
+    if args.use_pallas and args.no_pallas:
+        raise ValueError("--use_pallas and --no_pallas are mutually exclusive")
 
+    from wgsassign_tpu_torch.obs.log import setup_logging
+    from wgsassign_tpu_torch.parallel.runtime import distributed_env
+
+    setup_logging(args.log_level)
+    device = "cuda:0" if device is None else str(device)
+    if args.devices is not None:
+        if distributed_env() is not None:
+            raise ValueError(
+                "--devices cannot be combined with a multi-host run (the "
+                "mesh must span every process's devices)"
+            )
+        n_ranks = _local_ranks(args.devices, device)
+        if n_ranks > 1:
+            _run_local_ranks(sys.argv[1:] if argv is None else list(argv),
+                             device, n_ranks)
+            return None
+    return _run(args, device, None)
+
+
+def _local_ranks(asked: int, device: str) -> int:
+    """``--devices n`` on this host: the first ``n`` cards, so more than
+    the host has gives the host's count (as the JAX package's
+    ``devices[:n]``), with a logged warning.  CPU ranks have no such
+    count."""
+    import torch
+
+    from wgsassign_tpu_torch.parallel.runtime import log
+
+    if asked < 1:
+        raise ValueError("--devices needs a positive count")
+    if not device.startswith("cuda"):
+        return asked
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' explicitly to run the plain versions")
+    have = torch.cuda.device_count()
+    if asked > have:
+        log.warning("--devices %d: this host has %d GPU(s); running %d "
+                    "rank(s)", asked, have, have)
+    return min(asked, have)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_entry(rank, world, address, argv, device):
+    """Entry point of one ``--devices`` rank (a spawned process)."""
+    _run(parser.parse_args(argv), device, (address, world, rank))
+
+
+def _run_local_ranks(argv, device, world):
+    """Start ``world`` ranks of this command on this host with the ``spawn``
+    start method (CUDA forbids ``fork`` once it is initialised), wait for
+    all, and raise if any failed; the others are stopped then."""
+    import multiprocessing
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    address = f"127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(rank, world, address, argv, device))
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        while any(proc.is_alive() for proc in procs):
+            if any(proc.exitcode not in (None, 0) for proc in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in procs:
+            proc.join()
+    failed = {rank: proc.exitcode for rank, proc in enumerate(procs)
+              if proc.exitcode != 0}
+    if failed:
+        raise RuntimeError(
+            f"--devices {world}: rank(s) failed (rank: exit code) {failed}")
+
+
+def _run(args, device, ranks):
+    """One rank's run: the only rank, or rank ``ranks[2]`` of ``ranks[1]``
+    at the address ``ranks[0]`` (None: read the ``WGSA_*`` variables)."""
     import torch
 
     from wgsassign_tpu_torch.io import writers
     from wgsassign_tpu_torch.obs.log import setup_logging
     from wgsassign_tpu_torch.obs.profiling import RunTimer
     from wgsassign_tpu_torch.obs.profiling import maybe_profile
-    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+    from wgsassign_tpu_torch.parallel.runtime import (
+        make_runtime,
+        shutdown_distributed,
+    )
 
-    setup_logging(args.log_level)
-    runtime = make_runtime("cuda:0" if device is None else device,
-                           fast_math=not args.no_fast_em,
-                           debug_checks=args.debug_checks)
-    # provenance log (reference WGSassign.py:127-141)
-    writers.write_args_file(args.out, args, parser.parse_args([]))
-    name = (torch.cuda.get_device_name(runtime.device)
-            if runtime.device.type == "cuda" else "the CPU (plain versions)")
-    print(f"Device: {runtime.device} ({name}).\n")
-    timer = RunTimer()
-    with maybe_profile(args.profile, runtime.device):
-        _dispatch(args, runtime, timer, writers)
-    timer.report()
+    setup_logging(args.log_level)  # a spawned rank starts unconfigured
+    use_kernels = True if args.use_pallas else (
+        False if args.no_pallas else None)
+    runtime = make_runtime(device, fast_math=not args.no_fast_em,
+                           debug_checks=args.debug_checks,
+                           use_kernels=use_kernels, ranks=ranks)
+    stdout = sys.stdout
+    devnull = None
+    if not runtime.is_primary():
+        # one rank owns stdout (the writers are guarded by ``rank=``);
+        # warnings and errors still reach stderr
+        devnull = sys.stdout = open(os.devnull, "w")
+    try:
+        print("WGSassign (wgsassign-tpu " + __version__
+              + ", PyTorch/CUDA port)")
+        # provenance log (reference WGSassign.py:127-141)
+        writers.write_args_file(args.out, args, parser.parse_args([]),
+                                rank=runtime.rank)
+        name = (torch.cuda.get_device_name(runtime.device)
+                if runtime.device.type == "cuda"
+                else "the CPU (plain versions)")
+        print(f"Device: {runtime.device} ({name}).")
+        cards = (min(runtime.world, torch.cuda.device_count())
+                 if runtime.device.type == "cuda" else 0)
+        print(
+            f"Mesh: {runtime.world} rank(s) on {cards} GPU(s) ({name}); "
+            + (f"collectives over {runtime.backend}; "
+               if runtime.world > 1 else "")
+            + "SNP-axis data parallel.\n"
+        )
+        timer = RunTimer()
+        timer.results["mesh"] = {"rank": runtime.rank, "world": runtime.world,
+                                 "backend": runtime.backend,
+                                 "device": str(runtime.device)}
+        with maybe_profile(args.profile, runtime.device):
+            _dispatch(args, runtime, timer, writers)
+        timer.report()
+        shutdown_distributed(runtime)
+    finally:
+        sys.stdout = stdout
+        if devnull is not None:
+            devnull.close()
     return timer
 
 
@@ -225,10 +339,34 @@ def _dispatch(args, runtime, timer, writers):
     downsampled = None
     downsampled_cohort = None
     n_threads = args.threads if args.threads and args.threads > 0 else None
+    several = runtime.world > 1
+    window = dict(rank=runtime.rank, world=runtime.world)
 
     if args.beagle is not None and args.stream_ingest is not None:
         cohort, beagle, downsampled_cohort = _stream_ingest(
             args, runtime, timer, n_threads)
+    elif args.beagle is not None and several and args.loo_downsampled_beagle:
+        from wgsassign_tpu_torch.io.beagle import sharded_downsampled_pair
+
+        print("Parsing Beagle files (per-rank row windows over the global "
+              "site intersection).")
+        with timer.phase("parse"):
+            beagle, downsampled = sharded_downsampled_pair(
+                args.beagle, args.loo_downsampled_beagle,
+                site_multiple=args.partition_sites, n_threads=n_threads,
+                **window)
+        print(f"Loaded {beagle.n_sites} common sites and {beagle.n_inds} "
+              f"individuals ({beagle.hi - beagle.lo} sites on this rank).")
+    elif args.beagle is not None and several:
+        from wgsassign_tpu_torch.io.beagle import read_beagle_sharded
+
+        print("Parsing Beagle file (per-rank row windows).")
+        with timer.phase("parse"):
+            beagle = read_beagle_sharded(
+                args.beagle, site_multiple=args.partition_sites,
+                n_threads=n_threads, **window)
+        print(f"Loaded {beagle.n_sites} sites and {beagle.n_inds} "
+              f"individuals ({beagle.hi - beagle.lo} sites on this rank).")
     elif args.beagle is not None:
         print("Parsing Beagle file.")
         with timer.phase("parse"):
@@ -237,7 +375,8 @@ def _dispatch(args, runtime, timer, writers):
         _print_preview("sample_names", beagle.sample_names)
         _print_preview("site_names", beagle.site_names)
 
-    if args.loo_downsampled_beagle is not None and args.stream_ingest is None:
+    if (args.loo_downsampled_beagle is not None and not several
+            and args.stream_ingest is None):
         print("Parsing the optional downsampled Beagle file.")
         with timer.phase("parse"):
             downsampled = read_beagle(
@@ -269,7 +408,8 @@ def _dispatch(args, runtime, timer, writers):
         _pop_like(args, beagle, cohort, timer, writers)
     if args.get_reference_z_score or args.get_assignment_z_score:
         _z_scores(args, beagle, cohort, timer, writers)
-    if args.get_em_mix or args.get_mcmc_mix:
+    if (args.get_em_mix or args.get_mcmc_mix) and runtime.is_primary():
+        # host numpy on a small matrix: one rank computes and writes
         _mixture(args, timer, writers)
 
 
@@ -338,12 +478,14 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
     if not os.path.isfile(args.pop_af_IDs or ""):
         raise FileNotFoundError("Reference population ID file does not exist!!")
     popmap = read_ids(args.pop_af_IDs)
+    rank = cohort.runtime.rank
     with timer.phase("reference_af"):
         res = estimate_reference_af(
             beagle, popmap, args.maf_iter, args.maf_tole, cohort=cohort,
             checkpoint_path=(args.out + ".em.ckpt.npz"
                              if args.em_checkpoint else None),
         )
+    timer.results["reference_af"] = res
     em_secs = timer.totals["reference_af"]
     total_updates = float(
         cohort.m_real * sum(
@@ -352,15 +494,16 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
     )
     print(f"EM throughput: {total_updates / max(em_secs, 1e-9):.3g} "
           "site-individual GL updates/s")
+    print(f"EM (MAF) engine: {res.engine}")
     for pop, it, conv in zip(res.pops, res.iters, res.converged):
         status = f"converged at iteration: {it}" if conv else \
                  f"did not converge within {args.maf_iter} iterations"
         print(f"EM (MAF) population {pop}: {status}")
-    writers.write_pop_af(args.out, res.af)
+    writers.write_pop_af(args.out, res.af, rank=rank)
     print(f"Saved reference population allele frequencies as {args.out}"
           ".pop_af.npy (Binary - np.float32)\n")
     print(f"Column order of populations is: {res.pops}")
-    writers.write_pop_names(args.out, res.pops)
+    writers.write_pop_names(args.out, res.pops, rank=rank)
     print(f"Saved reference population names as {args.out}.pop_names.txt\n")
 
     if args.ne_obs:
@@ -369,12 +512,13 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
         print("Estimating Fisher information.")
         with timer.phase("ne"):
             ne = effective_sample_sizes(beagle, res.af, popmap, cohort=cohort)
-        writers.write_ne_outputs(args.out, ne.f_obs, ne.ne_obs, res.pops)
+        writers.write_ne_outputs(args.out, ne.f_obs, ne.ne_obs, res.pops,
+                                 rank=rank)
         print(f"Saved observed Fisher information as {args.out}.fisher_obs.npy")
         print(f"Saved per-locus effective sample sizes as {args.out}.ne_obs.npy")
         print(f"Saved population effective sample sizes as {args.out}.ne_obs.txt")
         print("Estimating individual effective sample sizes.")
-        writers.write_ne_ind(args.out, ne.ne_ind)
+        writers.write_ne_ind(args.out, ne.ne_ind, rank=rank)
         print(f"Saved individual effective sample sizes as {args.out}.ne_ind.txt")
 
     if not args.loo:
@@ -400,6 +544,7 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
                              if args.em_checkpoint else None),
             af_t_dev=res.af_t_dev,
         )
+    timer.results["loo"] = loo_res
     loo_secs = timer.totals["loo"]
     sizes_of = dict(zip(popmap.pops, popmap.pop_sizes))
     pairwise_updates = float(cohort.m_real) * sum(
@@ -408,6 +553,8 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
     )
     print(f"LOO EM throughput: {pairwise_updates / max(loo_secs, 1e-9):.3g} "
           "pairwise site-member updates/s")
+    print("LOO EM engines: " + ", ".join(
+        f"{pop}={eng}" for pop, eng in zip(res.pops, loo_res.engines)))
     suffix = ("_downsampled"
               if downsampled is not None or downsampled_cohort is not None
               else "")
@@ -415,7 +562,7 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
     writers.write_assignment_matrix(
         outfile, loo_res.ll, beagle.sample_names, list(res.pops),
         print_part_column=False, sample_locations=popmap.pop_labels,
-        doing_LOO=True,
+        doing_LOO=True, rank=rank,
     )
     print(f"Saved leave-one-out cross validation log likelihoods as {outfile}")
     if args.partition_sites > 1:
@@ -424,7 +571,7 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
         writers.write_assignment_matrix(
             partfile, loo_res.parts, beagle.sample_names, list(res.pops),
             partition_count=args.partition_sites, print_part_column=True,
-            sample_locations=popmap.pop_labels, doing_LOO=True,
+            sample_locations=popmap.pop_labels, doing_LOO=True, rank=rank,
         )
         print(f"Saved partitioned LOO log likelihoods as {partfile}")
     print(f"Column order of populations is: {res.pops}")
@@ -448,7 +595,7 @@ def _pop_like(args, beagle, cohort, timer, writers):
     with timer.phase("pop_like"):
         ll = assignment_loglikelihoods(beagle, af, cohort=cohort,
                                        f64_sums=not args.f32_sums)
-    writers.write_loglike_txt(args.out, ll)
+    writers.write_loglike_txt(args.out, ll, rank=cohort.runtime.rank)
     print(f"Saved population assignment log likelihoods as {args.out}"
           ".pop_like.txt (text)")
 
@@ -498,10 +645,12 @@ def _z_scores(args, beagle, cohort, timer, writers):
                 cohort=cohort, verbose=True,
                 error_rate=args.zscore_error_rate, timer=timer,
             )
+        timer.results["reference_z"] = res
         print(f"Reference z-score EM: {res.structure} (kept fraction "
-              f"{res.fill:.4f}), iterations {res.em_iters.min()}.."
-              f"{res.em_iters.max()}")
-        writers.write_z_scores(args.out, res.z, reference_mode=True)
+              f"{res.fill:.4f}), engine {res.engine}, iterations "
+              f"{res.em_iters.min()}..{res.em_iters.max()}")
+        writers.write_z_scores(args.out, res.z, reference_mode=True,
+                               rank=cohort.runtime.rank)
         print(f"Saved {len(res.z)} individual z-scores as {args.out}"
               ".reference_z_ind.txt (text)")
 
@@ -518,7 +667,9 @@ def _z_scores(args, beagle, cohort, timer, writers):
                 threshold, args.single_read_threshold, cohort=cohort,
                 verbose=True, error_rate=args.zscore_error_rate, timer=timer,
             )
-        writers.write_z_scores(args.out, res.z, reference_mode=False)
+        timer.results["assignment_z"] = res
+        writers.write_z_scores(args.out, res.z, reference_mode=False,
+                               rank=cohort.runtime.rank)
         print(f"Saved {len(res.z)} individual z-scores as {args.out}"
               ".z_ind.txt (text)")
 

@@ -15,7 +15,7 @@ from wgsassign_tpu_torch.io.beagle import BeagleData
 from wgsassign_tpu_torch.models.common import (
     DeviceCohort,
     from_jax_arrays,
-    pad_af_to,
+    local_rows,
     to_device,
 )
 from wgsassign_tpu_torch.ops.loglik import (
@@ -25,7 +25,7 @@ from wgsassign_tpu_torch.ops.loglik import (
     assign_loglik_partitioned_f64,
     check_loglik_inputs,
 )
-from wgsassign_tpu_torch.parallel.runtime import Runtime
+from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
 
 
 def assignment_loglikelihoods(
@@ -45,26 +45,31 @@ def assignment_loglikelihoods(
     ``f64_sums`` (default) sums the site axis in float64 on the device,
     like the reference (glassy.py:38); False sums in float32.  Under the
     runtime's ``debug_checks`` the inputs are sanitised first
-    (:func:`check_loglik_inputs`).
+    (:func:`check_loglik_inputs`).  With several ranks each rank takes its
+    window of ``af`` and the sums are added over the ranks.
     """
     if cohort is None:
         cohort = to_device(beagle, runtime, site_multiple=num_partitions)
     rt = cohort.runtime
     (af_dev,) = from_jax_arrays(
-        pad_af_to(np.asarray(af, np.float32), cohort.m_pad), device=rt.device)
+        local_rows(np.asarray(af, np.float32), cohort, PAD_AF),
+        device=rt.device)
     args = (cohort.g0, cohort.g1, af_dev, cohort.site_weight)
+    reduce = rt.all_reduce_sum
     if rt.debug_checks:
-        check_loglik_inputs(*args)
+        check_loglik_inputs(*args, reduce=reduce)
     if num_partitions <= 1:
         if f64_sums:
-            ll = assign_loglik_f64(*args)
+            ll = assign_loglik_f64(*args, reduce=reduce)
         else:
-            ll = assign_loglik(*args).cpu().numpy()
+            ll = assign_loglik(*args, reduce=reduce).cpu().numpy()
         return ll.astype(np.float32)
     if f64_sums:
-        parts = assign_loglik_partitioned_f64(*args, num_partitions)
+        parts = assign_loglik_partitioned_f64(*args, num_partitions,
+                                              reduce=reduce)
     else:
-        parts = assign_loglik_partitioned(*args, num_partitions).cpu().numpy()
+        parts = assign_loglik_partitioned(*args, num_partitions,
+                                          reduce=reduce).cpu().numpy()
     ll = parts.sum(axis=0).astype(np.float32)  # [N, K]
     n, k = ll.shape
     parts_nk = np.transpose(parts.astype(np.float32), (1, 0, 2)).reshape(

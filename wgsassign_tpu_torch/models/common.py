@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import math
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -11,7 +10,6 @@ import numpy as np
 import torch
 
 from wgsassign_tpu_torch.parallel.runtime import (
-    PAD_AF,
     PAD_G0,
     PAD_G1,
     Runtime,
@@ -25,8 +23,13 @@ class DeviceCohort:
     """Genotype likelihood panels resident on ``runtime.device``.
 
     ``g0``/``g1`` are float32 ``[M_pad, N]``; ``site_weight`` is 1.0 on the
-    first ``m_real`` rows, 0.0 on padding (which holds the (1, 0) GL
-    pattern).
+    real rows, 0.0 on padding (which holds the (1, 0) GL pattern).
+
+    With several ranks the tensors hold this rank's window of the site
+    axis: global rows ``[lo, hi)`` in the first ``hi - lo`` local rows,
+    padded to the per-rank block ``m_pad``.  ``m_real`` is the global site
+    count on every rank (the RMSE denominator, the row count of the output
+    files).  With one rank ``lo == 0`` and ``hi == m_real``.
     """
 
     g0: torch.Tensor
@@ -34,6 +37,17 @@ class DeviceCohort:
     site_weight: torch.Tensor
     m_real: int
     runtime: Runtime
+    lo: int = 0
+    hi: Optional[int] = None
+
+    def __post_init__(self):
+        if self.hi is None:
+            self.hi = self.m_real
+
+    @property
+    def n_local(self) -> int:
+        """Real sites in this rank's window."""
+        return self.hi - self.lo
 
     @property
     def m_pad(self) -> int:
@@ -47,7 +61,17 @@ class DeviceCohort:
 def to_device(beagle, runtime: Runtime, site_multiple: int = 1) -> DeviceCohort:
     """Pad a parsed :class:`wgsassign_tpu_torch.io.beagle.BeagleData` to a
     multiple of ``site_multiple`` sites (the ``--partition_sites`` count)
-    and copy it to the device, one host-to-device copy per GL plane."""
+    and copy it to the device, one host-to-device copy per GL plane.  A
+    :class:`wgsassign_tpu_torch.io.beagle.BeagleShard` (one rank's row
+    window) goes through :func:`_shard_to_device`."""
+    from wgsassign_tpu_torch.io.beagle import BeagleShard
+
+    if isinstance(beagle, BeagleShard):
+        return _shard_to_device(beagle, runtime, site_multiple)
+    if runtime.world > 1:
+        raise ValueError(
+            "with several ranks each rank loads its own row window: use "
+            "read_beagle_sharded(path, site_multiple, rank=..., world=...)")
     g0_h = pad_sites(np.ascontiguousarray(beagle.gl[:, :, 0]), site_multiple,
                      PAD_G0)
     g1_h = pad_sites(np.ascontiguousarray(beagle.gl[:, :, 1]), site_multiple,
@@ -57,6 +81,59 @@ def to_device(beagle, runtime: Runtime, site_multiple: int = 1) -> DeviceCohort:
     g0, g1, sw = from_jax_arrays(g0_h, g1_h, w, device=runtime.device)
     return DeviceCohort(g0=g0, g1=g1, site_weight=sw, m_real=m_real,
                         runtime=runtime)
+
+
+def _shard_to_device(shard, runtime: Runtime,
+                     site_multiple: int) -> DeviceCohort:
+    """This rank's row block, padded to the per-rank block size with the
+    (PAD_G0, PAD_G1) pattern and weight 0 (counterpart of
+    ``_shard_to_device`` in the JAX package, which also assembles the
+    global array)."""
+    per = shard.rows_per_process
+    if per % max(site_multiple, 1) != 0:
+        raise ValueError(
+            f"BeagleShard block size {per} is not a multiple of "
+            f"{site_multiple}; re-read with read_beagle_sharded(path, "
+            "site_multiple, ...)")
+    n_local = shard.hi - shard.lo
+
+    def pad_block(a: np.ndarray, fill) -> np.ndarray:
+        out = np.full((per,) + a.shape[1:], fill, dtype=np.float32)
+        out[: a.shape[0]] = a
+        return out
+
+    g0, g1, sw = from_jax_arrays(
+        pad_block(shard.local.gl[:, :, 0], PAD_G0),
+        pad_block(shard.local.gl[:, :, 1], PAD_G1),
+        pad_block(np.ones(n_local, dtype=np.float32), 0.0),
+        device=runtime.device)
+    return DeviceCohort(g0=g0, g1=g1, site_weight=sw, m_real=shard.m_global,
+                        runtime=runtime, lo=shard.lo, hi=shard.hi)
+
+
+def local_rows(arr: np.ndarray, cohort: DeviceCohort, pad_value) -> np.ndarray:
+    """The rows of a global ``[M, ...]`` host array that fall in the
+    cohort's window, padded to its ``m_pad`` rows with ``pad_value``."""
+    arr = np.asarray(arr)
+    if cohort.lo == 0 and arr.shape[0] == cohort.m_pad:
+        return arr
+    out = np.full((cohort.m_pad,) + arr.shape[1:], pad_value, dtype=arr.dtype)
+    out[: cohort.n_local] = arr[cohort.lo : cohort.hi]
+    return out
+
+
+def gather_real_sites(cohort: DeviceCohort, t: torch.Tensor, axis: int = 0,
+                      to_all: bool = False) -> Optional[np.ndarray]:
+    """The global real-site rows of a per-rank tensor whose ``axis`` is the
+    local (padded) site axis, as a host array: on rank 0, or on every rank
+    with ``to_all`` (None elsewhere)."""
+    rt = cohort.runtime
+    if rt.world == 1:
+        return t.narrow(axis, 0, cohort.m_real).cpu().numpy()
+    whole = rt.gather_sites(t, axis, to_all=to_all)
+    if whole is None:
+        return None
+    return whole.narrow(axis, 0, cohort.m_real).numpy()
 
 
 def from_jax_arrays(*arrays, device) -> tuple:
@@ -74,14 +151,6 @@ def from_jax_arrays(*arrays, device) -> tuple:
     return tuple(out)
 
 
-def pad_af_to(af: np.ndarray, m_pad: int) -> np.ndarray:
-    """Pad an ``[M, K]`` AF panel's site axis up to ``m_pad`` with 0.5."""
-    m = af.shape[0]
-    if m == m_pad:
-        return af
-    return np.pad(af, [(0, m_pad - m), (0, 0)], constant_values=PAD_AF)
-
-
 def _stream_overlap_default() -> bool:
     """Whether parsing overlaps the device copies (a prefetch thread parses
     block i+1 while block i is staged and sent).
@@ -89,11 +158,14 @@ def _stream_overlap_default() -> bool:
     The JAX package's rule, kept with its environment semantics: on hosts
     with few cores the tokenizer threads and the host-to-device transfer
     fight for the same CPUs, so strict parse/copy alternation is used below
-    4 cores and overlap from 4 up.  Override with WGSA_STREAM_OVERLAP=0/1.
+    4 cores and overlap from 4 up.  Override with WGSA_STREAM_OVERLAP: ``0``,
+    ``false``, ``no`` and ``off`` in any case turn it off, anything else on.
+    (The JAX package differs here: it reads only ``0``, ``false`` and
+    ``False`` as off.)
     """
     env = os.environ.get("WGSA_STREAM_OVERLAP")
     if env is not None:
-        return env not in ("0", "false", "False")
+        return env.strip().lower() not in ("0", "false", "no", "off")
     return (os.cpu_count() or 1) >= 4
 
 
@@ -180,19 +252,29 @@ def stream_to_device(
     -- the streamed form of the downsampled-LOO site intersection; the
     cohort then covers only the kept rows, in order.
 
+    With several ranks (``runtime.world > 1``) each rank streams only its
+    own contiguous row window, under ``keep_mask`` the window over the kept
+    rows, into its block of the site axis.
+
     Returns ``(cohort, meta, site_names)``: ``meta`` is a
     :class:`wgsassign_tpu_torch.io.stream.BeagleStreamMeta`, ``site_names``
     None unless ``collect_site_names`` (an O(M) host list, for tests and small
     runs).
     """
-    from wgsassign_tpu_torch.io.beagle import beagle_dims
+    from wgsassign_tpu_torch.io.beagle import beagle_dims, process_row_range
     from wgsassign_tpu_torch.io.stream import (
         BeagleStreamMeta,
         open_block_iterator,
         prefetch,
     )
 
+    rank, world = runtime.rank, runtime.world
+    if collect_site_names and world > 1:
+        raise ValueError(
+            "collect_site_names would return only this rank's window when "
+            "several ranks stream")
     m_scan, n = beagle_dims(path, use_native=use_native)
+    positions = None
     if keep_mask is not None:
         keep_mask = np.asarray(keep_mask, dtype=bool)
         if keep_mask.shape[0] != m_scan:
@@ -200,48 +282,69 @@ def stream_to_device(
                 f"keep_mask covers {keep_mask.shape[0]} rows, Beagle file "
                 f"{path} has {m_scan}"
             )
-        m_real = int(keep_mask.sum())
+        positions = np.flatnonzero(keep_mask)
+        m_real = int(positions.size)
     else:
         m_real = m_scan
-    mult = max(site_multiple, 1)
-    m_pad = math.ceil(max(m_real, 1) / mult) * mult
+    # this rank's window [lo, hi) over the kept rows; ``per`` is the padded
+    # block every rank holds.  A rank whose whole window lies in the padded
+    # tail sees an empty window (hi == lo).
+    lo, hi, per = process_row_range(max(m_real, 1), max(site_multiple, 1),
+                                    rank, world)
+    hi = max(lo, min(hi, m_real))
+    n_local = hi - lo
     if block_rows is None:
         # ~256 MiB of parsed GL (2 float32s per site-individual) per block
         block_rows = max((256 << 20) // (8 * max(n, 1)), 1)
 
+    # the window mapped back to the smallest range of original rows
+    # (filtering preserves order); rows before it are inflated and
+    # line-counted, never tokenized
+    local_mask = None
+    if world == 1:
+        row_range = None
+        local_mask = keep_mask
+    elif n_local == 0:
+        row_range = (0, 0)
+    elif positions is not None:
+        row_range = (int(positions[lo]), int(positions[hi - 1]) + 1)
+        local_mask = keep_mask[row_range[0]:row_range[1]]
+    else:
+        row_range = (lo, hi)
     meta, blocks = open_block_iterator(path, block_rows, use_native,
                                        n_threads=n_threads,
+                                       row_range=row_range,
                                        dims=(m_scan, n))
-    if keep_mask is not None:
-        blocks = _rechunk_filtered(blocks, keep_mask, block_rows)
+    if local_mask is not None:
+        blocks = _rechunk_filtered(blocks, local_mask, block_rows)
 
     dev = runtime.device
-    g0 = torch.full((m_pad, n), PAD_G0, dtype=torch.float32, device=dev)
-    g1 = torch.full((m_pad, n), PAD_G1, dtype=torch.float32, device=dev)
+    g0 = torch.full((per, n), PAD_G0, dtype=torch.float32, device=dev)
+    g1 = torch.full((per, n), PAD_G1, dtype=torch.float32, device=dev)
     overlap = _stream_overlap_default()
     uploader = _Uploader(g0, g1, block_rows, wait_each=not overlap)
     site_names = [] if collect_site_names else None
     done = 0
     for gl_block, names in (prefetch(blocks) if overlap else blocks):
         b = gl_block.shape[0]
-        if done + b > m_real:
+        if done + b > n_local:
             raise ValueError(
                 f"Beagle file {path} grew during streaming ingest "
-                f"({done + b} rows > dims scan {m_real})"
+                f"({lo + done + b} rows > dims scan {hi})"
             )
         uploader.put(done, gl_block)
         if site_names is not None:
             site_names.extend(names)
         done += b
     uploader.finish()
-    if done != m_real:
+    if done != n_local:
         raise ValueError(
             f"Beagle file {path} shrank during streaming ingest "
-            f"({done} rows < dims scan {m_real})"
+            f"({lo + done} rows < dims scan {hi})"
         )
-    (sw,) = from_jax_arrays(site_weight_vector(m_real, m_pad), device=dev)
+    (sw,) = from_jax_arrays(site_weight_vector(n_local, per), device=dev)
     cohort = DeviceCohort(g0=g0, g1=g1, site_weight=sw, m_real=m_real,
-                          runtime=runtime)
+                          runtime=runtime, lo=lo, hi=hi)
     return cohort, BeagleStreamMeta(m_scan, n, meta.sample_names), site_names
 
 

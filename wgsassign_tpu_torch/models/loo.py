@@ -19,6 +19,18 @@ reproduced exactly, batched:
 Everything stays on the device: member panels are gathers of the cohort,
 and the full-data AF panel is handed over from the reference-AF step.
 
+A population above the ``loo_chunk`` kernel's member bound
+(:func:`max_loo_members`) runs the plain
+:func:`wgsassign_tpu_torch.ops.emmaf.em_maf_loo_group` on the same device,
+with a logged warning; so does every population under ``--no_pallas``.
+``LooResult.engines`` says which ran.  The rule is taken from the shape
+before any launch: a kernel that fails to build, load or launch raises.
+
+With several ranks each rank runs the EMs and the per-site likelihoods on its
+window of the site axis; the convergence partials and the float64
+likelihood sums are summed over the ranks, so every rank returns the same
+result.
+
 ``compat_af_mutation=False`` (``--loo_clean_af``) gives the statistically
 clean variant: foreign-population likelihoods use the full-data AF.
 """
@@ -35,8 +47,14 @@ import torch
 from wgsassign_tpu_torch.io.beagle import BeagleData
 from wgsassign_tpu_torch.io.ids import PopulationMap
 from wgsassign_tpu_torch.obs.checkpoint import save_npz_atomic
-from wgsassign_tpu_torch.models.common import DeviceCohort, to_device
-from wgsassign_tpu_torch.obs.checkpoint import EMCheckpoint
+from wgsassign_tpu_torch.models.common import (
+    DeviceCohort,
+    gather_real_sites,
+    local_rows,
+    to_device,
+)
+from wgsassign_tpu_torch.obs.checkpoint import make_checkpoint
+from wgsassign_tpu_torch.ops.emmaf import _EM_EPS, em_maf_loo_group
 from wgsassign_tpu_torch.ops.fused_em import em_maf_loo_group_fused
 from wgsassign_tpu_torch.ops.loglik import (
     assign_loglik_selected,
@@ -45,8 +63,8 @@ from wgsassign_tpu_torch.ops.loglik import (
     assign_loglik_selected_partitioned_f64,
     check_loglik_inputs,
 )
-from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
-from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
+from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk, max_loo_members
+from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime, log
 
 
 @dataclass
@@ -55,6 +73,10 @@ class LooResult:
     parts: np.ndarray      # float32 [N * num_partitions, K] (partition sums)
     iters: np.ndarray      # int32 [N] per-individual LOO EM convergence iteration
     converged: np.ndarray  # bool [N]
+    # per population (order of ``popmap.pops``), what ran its LOO EM:
+    # "loo_chunk" (the chunked EM), "plain" (the plain op), or "restart
+    # file" (a finished population loaded from its --em_checkpoint file)
+    engines: tuple = ()
 
 
 def loo_af_column_index(popmap: PopulationMap, compat_af_mutation: bool) -> np.ndarray:
@@ -108,7 +130,7 @@ def leave_one_out(
     if cohort is None:
         cohort = to_device(beagle, runtime, site_multiple=num_partitions)
     rt = cohort.runtime
-    rt.kernels_enabled()  # on a GPU: build, load and probe, or raise
+    rt.chunked_em()  # on a GPU: build, load and probe, or raise
     n = cohort.n_inds
     m_pad = cohort.m_pad
     m_real = cohort.m_real
@@ -143,40 +165,45 @@ def leave_one_out(
         # are weighted to zero downstream)
         af_t = af_t_dev
     else:
-        af_t_h = np.full((k, m_pad), PAD_AF, dtype=np.float32)
-        af_t_h[:, :m_real] = np.asarray(af_full, np.float32).T
-        af_t = torch.from_numpy(af_t_h).to(device)  # the only (small) H2D
+        af_t_h = local_rows(np.asarray(af_full, np.float32), cohort, PAD_AF)
+        af_t = torch.from_numpy(
+            np.ascontiguousarray(af_t_h.T)).to(device)  # the only (small) H2D
     if rt.debug_checks:
         check_loglik_inputs(cohort.g0, cohort.g1, af_t.t(),
-                            cohort.site_weight)
+                            cohort.site_weight, reduce=rt.all_reduce_sum)
     col_idx_global = loo_af_column_index(popmap, compat_af_mutation)
     iters = np.empty(n, dtype=np.int32)
     converged = np.empty(n, dtype=bool)
     p_count = max(num_partitions, 1)
     ll = np.empty((n, k), dtype=np.float64)
     parts_nk = np.empty((n, p_count, k), dtype=np.float64)
+    engines = []
+    reduce = rt.all_reduce_sum
     for j, pop in enumerate(popmap.pops):
         members = popmap.members_of(pop)
         members_d = torch.from_numpy(members).to(device)
         done_path = (f"{checkpoint_path}.pop{j}.done.npz"
                      if checkpoint_path else None)
-        if done_path and os.path.exists(done_path):
+        # rank 0's view of the file decides, so the ranks stay in step
+        if done_path and rt.broadcast_object(os.path.exists(done_path)):
             # per-population restart point: this population's LOO EM already
             # finished in an interrupted earlier run
             with np.load(done_path) as z:
                 f_h = np.full((len(members), m_pad), PAD_AF, np.float32)
-                f_h[:, :m_real] = z["f"]
+                f_h[:, : cohort.n_local] = z["f"][:, cohort.lo : cohort.hi]
                 it_p, conv_p = z["iters"], z["converged"]
             f_p = torch.from_numpy(f_h).to(device)
+            engine = "restart file"
         else:
-            f_p, it_p, conv_p = _loo_group_em(
+            f_p, it_p, conv_p, engine = _loo_group_em(
                 rt, cohort, members_d, m_real, max_iter, tol,
                 chunk_ckpt_path=(f"{checkpoint_path}.pop{j}.npz"
                                  if checkpoint_path else None),
-                chunk_op=chunk_op,
+                chunk_op=chunk_op, pop=pop,
             )
             if done_path:
-                _save_pop_done(done_path, f_p, it_p, conv_p, m_real)
+                _save_pop_done(done_path, cohort, f_p, it_p, conv_p)
+        engines.append(engine)
         n_loo = sizes[j] - 1
         min_val = np.float32(1.0 / (2.0 * (n_loo + 1.0)))
         # mini-bank for LL column j: this population's clamped LOO rows
@@ -192,11 +219,13 @@ def leave_one_out(
         if num_partitions <= 1:
             if f64_sums:
                 ll_j = assign_loglik_selected_f64(
-                    src.g0, src.g1, mini_bank, col_j, src.site_weight
+                    src.g0, src.g1, mini_bank, col_j, src.site_weight,
+                    reduce=reduce,
                 )
             else:
                 ll_j = assign_loglik_selected(
-                    src.g0, src.g1, mini_bank, col_j, src.site_weight
+                    src.g0, src.g1, mini_bank, col_j, src.site_weight,
+                    reduce=reduce,
                 ).cpu().numpy()
             ll[:, j] = np.asarray(ll_j)[:, 0]
             parts_nk[:, 0, j] = ll[:, j]
@@ -204,12 +233,12 @@ def leave_one_out(
             if f64_sums:
                 ll_j, parts_j = assign_loglik_selected_partitioned_f64(
                     src.g0, src.g1, mini_bank, col_j, src.site_weight,
-                    num_partitions,
+                    num_partitions, reduce=reduce,
                 )
             else:
                 ll_jd, parts_jd = assign_loglik_selected_partitioned(
                     src.g0, src.g1, mini_bank, col_j, src.site_weight,
-                    num_partitions,
+                    num_partitions, reduce=reduce,
                 )
                 ll_j = ll_jd.cpu().numpy()
                 parts_j = parts_jd.cpu().numpy()
@@ -219,8 +248,9 @@ def leave_one_out(
         converged[members] = conv_p
         if verbose:
             print(f"LOO EM for population {pop}: {len(members)} problems, "
-                  f"iterations {iters[members].min()}..{iters[members].max()}")
-    if checkpoint_path:
+                  f"iterations {iters[members].min()}..{iters[members].max()}"
+                  f" (engine: {engine})")
+    if checkpoint_path and rt.is_primary():
         # LOO finished: drop the per-population restart files
         for j in range(k):
             for p in (f"{checkpoint_path}.pop{j}.done.npz",
@@ -236,6 +266,7 @@ def leave_one_out(
         parts=parts_nk.astype(np.float32).reshape(n * p_count, k),
         iters=iters,
         converged=converged,
+        engines=tuple(engines),
     )
 
 
@@ -249,24 +280,49 @@ def _mini_bank(f_p, af_t, j, min_val):
 
 
 def _loo_group_em(rt, cohort, members_d, m_real, max_iter, tol,
-                  chunk_ckpt_path=None, chunk_op=loo_chunk):
-    """One population's batched LOO EM through the chunked EM (the
-    ``loo_chunk`` kernel on a GPU, which raises above its member bound).
-    Returns ``(f [n_p, M] on the device, iters, converged)``."""
+                  chunk_ckpt_path=None, chunk_op=loo_chunk, pop=""):
+    """One population's batched LOO EM.  Returns ``(f [n_p, M] on the
+    device, iters, converged, engine)``.
+
+    The chunked EM (the ``loo_chunk`` kernel on a GPU) up to the kernel's
+    member bound; above it, and under ``--no_pallas``, the plain
+    :func:`em_maf_loo_group` on the same device.  The choice is made here
+    from ``n_p`` alone, before any launch: the kernel's wrapper raises when
+    called above its bound, and nothing catches a kernel error."""
     g0p, g1p = _member_panels(cohort.g0, cohort.g1, members_d)
-    ckpt = EMCheckpoint(chunk_ckpt_path) if chunk_ckpt_path else None
-    return em_maf_loo_group_fused(
-        g0p, g1p, m_real, max_iter, tol, checkpoint=ckpt,
-        fast_math=rt.fast_math, chunk_op=chunk_op,
+    n_p = g0p.shape[0]
+    reduce = rt.all_reduce_sum
+    chunked = rt.chunked_em()
+    if chunked and n_p > max_loo_members():
+        log.warning(
+            "LOO EM: population %s of %d members exceeds the loo_chunk "
+            "kernel's bound of %d members; it runs the plain op "
+            "em_maf_loo_group on %s", pop, n_p, max_loo_members(), rt.device)
+        chunked = False
+    if not chunked:
+        f, iters, conv = em_maf_loo_group(
+            g0p, g1p, cohort.site_weight, m_real, max_iter, tol,
+            reduce=reduce)
+        return f, iters.cpu().numpy(), conv.cpu().numpy(), "plain"
+    f, iters, conv = em_maf_loo_group_fused(
+        g0p, g1p, m_real, max_iter, tol,
+        checkpoint=make_checkpoint(chunk_ckpt_path, cohort, _EM_EPS),
+        fast_math=rt.fast_math, chunk_op=chunk_op, reduce=reduce,
+        n_local=cohort.n_local,
     )
+    return f, iters, conv, "loo_chunk"
 
 
-def _save_pop_done(path, f_p, it_p, conv_p, m_real):
+def _save_pop_done(path, cohort, f_p, it_p, conv_p):
     """Atomically record one population's finished LOO EM (real sites only)
-    so an interrupted run resumes at population granularity."""
+    so an interrupted run resumes at population granularity.  With several
+    ranks the rows are gathered and rank 0 writes."""
+    f_h = gather_real_sites(cohort, f_p, axis=1)
+    if f_h is None:
+        return  # one writer per shared filesystem
     save_npz_atomic(
         path,
-        f=np.asarray(f_p[:, :m_real].cpu().numpy(), np.float32),
+        f=np.asarray(f_h, np.float32),
         iters=np.asarray(it_p, np.int32),
         converged=np.asarray(conv_p, bool),
     )

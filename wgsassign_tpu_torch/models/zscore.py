@@ -22,12 +22,24 @@ because ``wgsassign_tpu.models`` imports jax.  Reference mode runs its
 per-individual EMs in one of two structures, chosen once per run by the
 kept fraction ``fill`` exactly as the JAX package chooses on one device:
 loo-structured (``zloo_chunk`` kernel, full site axis) when ``fill >= 0.5``,
-gathered (``sites_chunk`` kernel, kept sites only) otherwise.
+gathered (``sites_chunk`` kernel, kept sites only) otherwise.  Above a
+kernel's member bound, and under ``--no_pallas``, the plain ops of
+``ops/emmaf.py`` run in the same structure; ``ZScoreResult.engine`` says
+which ran.
+
+With several ranks every rank builds the host tables whole (they are global
+per individual: the allele-depth file is read in full and the GL columns are
+gathered across the ranks), then keeps of each individual's kept sites those
+in its window of the site axis (:func:`_localize`).  The EM is always
+loo-structured then, as in the JAX package on several devices; its
+convergence partials and the three z sums are added over the ranks before
+``z`` is formed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 import os
@@ -41,16 +53,26 @@ import torch
 
 from wgsassign_tpu_torch.io.beagle import BeagleData
 from wgsassign_tpu_torch.io.ids import PopulationMap
-from wgsassign_tpu_torch.models.common import DeviceCohort, pad_af_to, to_device
+from wgsassign_tpu_torch.models.common import (
+    DeviceCohort,
+    local_rows,
+    to_device,
+)
 from wgsassign_tpu_torch.models.loo import _member_panels
+from wgsassign_tpu_torch.ops.emmaf import em_maf_loo_subset, em_maf_sites_batch
 from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_subset_fused,
     em_maf_sites_batch_fused,
 )
-from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk
-from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk
+from wgsassign_tpu_torch.ops.sites_chunk import max_sites_members, sites_chunk
+from wgsassign_tpu_torch.ops.zloo_chunk import max_zloo_members, zloo_chunk
 from wgsassign_tpu_torch.ops.zscore_ops import zscore_sums_batch_compact
-from wgsassign_tpu_torch.parallel.runtime import Runtime, synchronize
+from wgsassign_tpu_torch.parallel.runtime import (
+    PAD_AF,
+    Runtime,
+    log,
+    synchronize,
+)
 
 F32 = np.float32
 
@@ -85,6 +107,17 @@ class ComboTables:
     site_depth: np.ndarray  # int64 [S] total depth per kept site
     g0_keep: np.ndarray     # float32 [S] the individual's GL(g=0) at kept sites
     g1_keep: np.ndarray     # float32 [S] the individual's GL(g=1) at kept sites
+    # kept sites over the whole site axis, where the per-site fields hold
+    # only one rank's window (:func:`_localize`); None: they hold all
+    n_kept_global: Optional[int] = None
+
+    @property
+    def n_kept(self) -> int:
+        """Kept sites over the whole site axis (the EM's RMSE denominator,
+        the reported loci count)."""
+        if self.n_kept_global is None:
+            return int(self.keep_sites.size)
+        return self.n_kept_global
 
 
 class FilteringError(ValueError):
@@ -214,6 +247,10 @@ class ZScoreResult:
     em_iters: np.ndarray    # int32 [n_sub]
     fill: float = 0.0       # kept fraction over the individual range
     structure: str = ""     # "loo-structured", "gathered" or "assignment"
+    # reference mode: what ran the EMs -- "zloo_chunk" or "sites_chunk" (the
+    # chunked EM), "plain" (the plain op), or both joined by "+" when only
+    # some populations are above the kernel's member bound
+    engine: str = ""
 
 
 @dataclass
@@ -230,7 +267,8 @@ class _ZBlock:
     inds: List[int]          # real individual index per slot (repeats pad)
     n_real: int              # number of non-repeated leading slots
     keep: np.ndarray         # int32 [B, S] kept-site indices (pad -> 0)
-    s_real: np.ndarray       # float32 [B] kept-site counts
+    s_real: np.ndarray       # float32 [B] kept-site counts (in this window)
+    s_glob: np.ndarray       # float32 [B] kept-site counts over all windows
     depth: np.ndarray        # int32 [B, S] total depth per kept site (pad 0)
     rows_by_depth: np.ndarray  # int32 [B, C, C] combo row of split x at depth d
     like_tab: np.ndarray     # float32 [B, R, 3]
@@ -251,21 +289,26 @@ def _gl_column_iter(beagle, cohort, inds, chunk: Optional[int] = None):
     From the host parse when it is resident (a :class:`BeagleData`);
     otherwise (``--stream_ingest``: the GL matrix exists only on the
     device) the columns are gathered from the device cohort ``chunk``
-    individuals at a time, ~256 MB per copy to the host."""
-    if isinstance(beagle, BeagleData):
+    individuals at a time, ~256 MB per copy to the host.  With several
+    ranks each holds only its window of the rows, so the columns always
+    come from the device cohorts, gathered across the ranks to every rank
+    (counterpart of ``fetch_to_host(cols)`` in the JAX package)."""
+    rt = cohort.runtime
+    if isinstance(beagle, BeagleData) and rt.world == 1:
         for i in inds:
             yield i, beagle.gl[:, i, :]
         return
     m_real = cohort.m_real
     if chunk is None:
         chunk = max(1, (1 << 28) // (8 * max(m_real, 1)))
-    dev = cohort.runtime.device
+    dev = rt.device
     for lo in range(0, len(inds), chunk):
         block = list(inds[lo : lo + chunk])
         idx = _put(np.asarray(block, np.int64), dev)
-        cols = torch.stack([cohort.g0[:m_real].index_select(1, idx),
-                            cohort.g1[:m_real].index_select(1, idx)],
-                           dim=-1).cpu().numpy()  # [M_real, B, 2]
+        cols = torch.stack([cohort.g0.index_select(1, idx),
+                            cohort.g1.index_select(1, idx)], dim=-1)
+        cols = rt.gather_sites(cols, to_all=True)[:m_real].cpu().numpy()
+        # [M_real, B, 2]
         for bi, i in enumerate(block):
             yield i, cols[:, bi, :]
 
@@ -279,7 +322,10 @@ def _prepare_tables(beagle, cohort, ad, inds, n_threshold,
     bincount passes release the GIL); a bounded in-flight window keeps peak
     memory at O(workers) GL columns, not O(N).  Failures surface in
     individual order, as in a serial loop.  The GL columns come from
-    :func:`_gl_column_iter`."""
+    :func:`_gl_column_iter`.  ``s_max`` is the largest kept-site count in
+    this rank's window (the shape of its arrays), ``s_max_global`` the
+    largest over the whole site axis (the same on every rank: the block
+    sizes come from it, so the ranks walk the same blocks)."""
     tables, splits = {}, {}
 
     def build(i, gl_i):
@@ -304,10 +350,26 @@ def _prepare_tables(beagle, cohort, ad, inds, n_threshold,
                 drain(pending.popleft())
         while pending:
             drain(pending.popleft())
+    if cohort.runtime.world > 1:
+        tables = {i: _localize(t, cohort.lo, cohort.hi)
+                  for i, t in tables.items()}
     s_max = max(t.keep_sites.size for t in tables.values())
+    s_max_global = max(t.n_kept for t in tables.values())
     c_max = max(r.shape[1] for r in splits.values())
     r_max = max(len(t.combos) for t in tables.values())
-    return tables, splits, s_max, c_max, r_max
+    return tables, splits, s_max, s_max_global, c_max, r_max
+
+
+def _localize(t: ComboTables, lo: int, hi: int) -> ComboTables:
+    """The tables of one individual with the per-site fields cut to the
+    kept sites in the window ``[lo, hi)`` of the site axis, shifted by
+    ``lo``.  Kept sites ascend, so the window is one slice of them."""
+    a, b = np.searchsorted(t.keep_sites, (lo, hi))
+    return dataclasses.replace(
+        t, keep_sites=t.keep_sites[a:b] - lo, site_row=t.site_row[a:b],
+        site_depth=t.site_depth[a:b], g0_keep=t.g0_keep[a:b],
+        g1_keep=t.g1_keep[a:b], n_kept_global=int(t.keep_sites.size),
+    )
 
 
 def _assemble_block(tables, splits, inds, b_pad, s_pad, c_pad, r_pad):
@@ -315,6 +377,7 @@ def _assemble_block(tables, splits, inds, b_pad, s_pad, c_pad, r_pad):
     slots = list(inds) + [inds[-1]] * (b_pad - n_real)
     keep = np.zeros((b_pad, s_pad), dtype=np.int32)
     s_real = np.zeros((b_pad,), dtype=F32)
+    s_glob = np.zeros((b_pad,), dtype=F32)
     depth = np.zeros((b_pad, s_pad), dtype=np.int32)
     rows_by_depth = np.zeros((b_pad, c_pad, c_pad), dtype=np.int32)
     # padded combo rows carry a harmless valid triple; they are never
@@ -327,13 +390,15 @@ def _assemble_block(tables, splits, inds, b_pad, s_pad, c_pad, r_pad):
         s = t.keep_sites.size
         keep[slot, :s] = t.keep_sites
         s_real[slot] = s
+        s_glob[slot] = t.n_kept
         depth[slot, :s] = t.site_depth
         rbd = splits[i]
         rows_by_depth[slot, : rbd.shape[0], : rbd.shape[1]] = rbd
         like_tab[slot, : len(t.combos)] = t.mean_gl
         fact_tab[slot, : len(t.combos)] = t.read_probs
     return _ZBlock(
-        inds=slots, n_real=n_real, keep=keep, s_real=s_real, depth=depth,
+        inds=slots, n_real=n_real, keep=keep, s_real=s_real, s_glob=s_glob,
+        depth=depth,
         rows_by_depth=rows_by_depth, like_tab=like_tab, fact_tab=fact_tab,
     )
 
@@ -417,14 +482,15 @@ def _run_blocks(
     if not inds:
         return out
     with phase("zscore_tables"):
-        tables, splits, s_max, c_max, r_max = _prepare_tables(
+        tables, splits, s_max, s_max_global, c_max, r_max = _prepare_tables(
             beagle, cohort, ad, inds, n_threshold, single_read_threshold,
             error_rate,
         )
     s_pad = _bucket(s_max, 1)
+    s_size = _bucket(s_max_global, 1)  # == s_pad with one rank
     c_pad = _bucket(c_max, 4)
     r_pad = _bucket(r_max, 4)
-    per_ind = s_pad * 256
+    per_ind = s_size * 256
     budget = Z_BLOCK_BYTES if block_bytes is None else block_bytes
     b = int(max(1, min(len(inds), budget // max(per_ind, 1))))
 
@@ -433,10 +499,10 @@ def _run_blocks(
     # (kept fraction over the whole range) also fixes the reference-mode EM
     # structure for every block of the run.
     fill = float(
-        sum(t.keep_sites.size for t in tables.values())
+        sum(t.n_kept for t in tables.values())
     ) / max(len(inds) * max(cohort.m_real, 1), 1)
     out.fill = fill
-    per_ind_af = max(per_ind_bytes_extra(s_pad, fill), 4 * s_pad)
+    per_ind_af = max(per_ind_bytes_extra(s_size, fill), 4 * s_size)
     b_af = int(max(b, min(
         len(inds), AF_GROUP_MAX_INDS, AF_GROUP_BYTES // per_ind_af
     )))
@@ -470,14 +536,16 @@ def _run_blocks(
                     _put(block.depth, dev), _put(block.rows_by_depth, dev),
                     _put(block.like_tab, dev), _put(block.fact_tab, dev),
                 )
-                w_obs, w_mu, w_var = (
-                    s.cpu().numpy().astype(np.float64) for s in sums)
+                # float64 before the sum over the ranks, as on one rank
+                # before ``z`` is formed
+                w_obs, w_mu, w_var = cohort.runtime.all_reduce_sum(
+                    torch.stack(sums).to(torch.float64)).cpu().numpy()
             for slot in range(block.n_real):
                 pos = glo + lo + slot
                 _fill(
                     out, pos,
                     (w_obs[slot] - w_mu[slot]) / math.sqrt(w_var[slot]),
-                    int(block.s_real[slot]),
+                    int(block.s_glob[slot]),
                     w_obs[slot], w_mu[slot], w_var[slot],
                 )
                 if verbose:
@@ -517,10 +585,26 @@ def reference_z_scores(
     if cohort is None:
         cohort = to_device(beagle, runtime)
     rt = cohort.runtime
-    rt.kernels_enabled()  # on a GPU: build, load and probe, or raise
+    chunked = rt.chunked_em()  # on a GPU: build, load and probe, or raise
+    reduce = rt.all_reduce_sum
+    engines = set()
     dev = rt.device
     n = cohort.n_inds
     ind_end = n if ind_end is None else ind_end
+
+    decided = {}
+
+    def use_kernel(what, kernel, rows, bound):
+        # the rule on the shape, taken before any launch: above the
+        # kernel's member bound the plain op runs, with one warning a run
+        if what not in decided:
+            decided[what] = chunked and rows <= bound
+            if chunked and rows > bound:
+                log.warning(
+                    "reference z-score EM: %s of %d members exceeds the %s "
+                    "kernel's bound of %d members; it runs the plain op on "
+                    "%s", what, rows, kernel, bound, dev)
+        return decided[what]
 
     members_of = {}
     for i in range(ind_start, ind_end):
@@ -560,11 +644,21 @@ def reference_z_scores(
             w_full = _scatter_site_weight(
                 block.keep[slots], block.weight[slots], cohort.m_pad, dev
             )
-            s_real_g = np.maximum(block.s_real[slots], 1.0).astype(F32)
-            f, it, _ = em_maf_loo_subset_fused(
-                g0p, g1p, leave, w_full, s_real_g, max_iter, tol,
-                fast_math=rt.fast_math, chunk_op=zloo_op,
-            )
+            s_real_g = np.maximum(block.s_glob[slots], 1.0).astype(F32)
+            if use_kernel(f"population {lab}", "zloo_chunk", n_p,
+                          max_zloo_members()):
+                engines.add("zloo_chunk")
+                f, it, _ = em_maf_loo_subset_fused(
+                    g0p, g1p, leave, w_full, s_real_g, max_iter, tol,
+                    fast_math=rt.fast_math, chunk_op=zloo_op, reduce=reduce,
+                )
+            else:
+                engines.add("plain")
+                f, it, _ = em_maf_loo_subset(
+                    g0p, g1p, leave, w_full, s_real_g, max_iter, tol,
+                    reduce=reduce,
+                )
+                it = it.cpu().numpy()
             # reference clamp with n = LOO member count n_p - 1
             parts.append(_gather_kept_af(f, block.keep[slots],
                                          1.0 / (2.0 * n_p)))
@@ -585,15 +679,32 @@ def reference_z_scores(
             mem_mask[slot, : m.size] = 1.0
         g0p, g1p = _gather_member_panels(cohort.g0, cohort.g1, block.keep,
                                          mem)
-        f, it, _ = em_maf_sites_batch_fused(
-            g0p, g1p, mem_mask, block.weight,
-            np.maximum(block.s_real, 1.0), max_iter, tol,
-            fast_math=rt.fast_math, chunk_op=sites_op,
-        )
+        s_real_g = np.maximum(block.s_glob, 1.0)
+        if use_kernel("a member panel", "sites_chunk", p_pad,
+                      max_sites_members()):
+            engines.add("sites_chunk")
+            f, it, _ = em_maf_sites_batch_fused(
+                g0p, g1p, mem_mask, block.weight, s_real_g, max_iter, tol,
+                fast_math=rt.fast_math, chunk_op=sites_op, reduce=reduce,
+            )
+        else:
+            engines.add("plain")
+            f, it, _ = em_maf_sites_batch(
+                g0p, g1p, _put(mem_mask, dev), _put(block.weight, dev),
+                _put(s_real_g, dev, torch.float32), max_iter, tol,
+                reduce=reduce,
+            )
+            it = it.cpu().numpy()
         return _clamp_loo_af(f, _put(mem_mask, dev)), it
 
+    def loo_structured(fill: float) -> bool:
+        # several ranks always take the loo-structured EM (the JAX
+        # package's rule on several devices): a gathered problem's kept
+        # sites lie in every rank's window
+        return rt.world > 1 or fill >= LOO_STRUCTURED_FILL
+
     def af_block(block: _ZBlock, fill: float):
-        if fill >= LOO_STRUCTURED_FILL:
+        if loo_structured(fill):
             return loo_structured_block(block)
         return gathered_block(block)
 
@@ -601,8 +712,8 @@ def reference_z_scores(
         # loo-structured shares per-population [n_p, M] panels, so each
         # problem adds a few site rows (ft/sw/af); the gathered form
         # materializes two [P, S] member panels per problem
-        if fill >= LOO_STRUCTURED_FILL:
-            return 16 * max(s_pad, cohort.m_pad)
+        if loo_structured(fill):
+            return 16 * max(s_pad, cohort.m_pad * rt.world)
         return 2 * p_pad * s_pad * 4
 
     out = _run_blocks(
@@ -610,8 +721,9 @@ def reference_z_scores(
         n_threshold, single_read_threshold, verbose, block_bytes,
         error_rate, timer,
     )
-    out.structure = ("loo-structured" if out.fill >= LOO_STRUCTURED_FILL
+    out.structure = ("loo-structured" if loo_structured(out.fill)
                      else "gathered")
+    out.engine = "+".join(sorted(engines))
     return out
 
 
@@ -667,7 +779,7 @@ def assignment_z_scores(
             f"AF panel has {af.shape[1]} populations, but the "
             f"--pop_names file lists {len(pops)}"
         )
-    af_dev = _put(pad_af_to(af, cohort.m_pad), dev)  # once per run
+    af_dev = _put(local_rows(af, cohort, PAD_AF), dev)  # once per run
 
     def af_block(block: _ZBlock, fill: float):
         cols = np.asarray([col_of[i] for i in block.inds], np.int64)

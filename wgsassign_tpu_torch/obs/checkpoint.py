@@ -7,6 +7,11 @@ either package resumes in the other.  The JAX package's fused EMs store
 their panel padded (sites to a multiple of 128, LOO problem rows to a
 multiple of 8); the port's fused EMs set :attr:`EMCheckpoint.file_layout`
 to write that layout and crop it again on load.
+
+With several ranks (:class:`ShardedEMCheckpoint`) the panel is gathered to
+rank 0, which writes the one file, in the same layout over the global site
+axis; every rank loads the file and takes its own window.  A file therefore
+resumes under any number of ranks, and in the JAX package.
 """
 
 from __future__ import annotations
@@ -74,3 +79,54 @@ class EMCheckpoint:
                 os.remove(self.path)
             except FileNotFoundError:
                 pass  # another process on a shared filesystem won the race
+
+
+class ShardedEMCheckpoint(EMCheckpoint):
+    """:class:`EMCheckpoint` of a run whose ranks each hold a window of the
+    site axis (``cohort``: a ``DeviceCohort`` with ``runtime.world > 1``).
+    Every method is called by all ranks in step: ``save`` gathers, ``load``
+    and ``clear`` act on rank 0's view of the file."""
+
+    def __init__(self, path, cohort, pad_value: float,
+                 interval_chunks: int = 4):
+        super().__init__(path, interval_chunks)
+        self.cohort = cohort
+        self.pad_value = pad_value
+
+    def save(self, f, iters, active, it: int) -> None:
+        if self.path is None:
+            return
+        from wgsassign_tpu_torch.models.common import gather_real_sites
+
+        whole = gather_real_sites(self.cohort, f, axis=1)
+        if whole is not None:  # rank 0
+            super().save(whole, iters, active, it)
+
+    def load(self):
+        rt = self.cohort.runtime
+        present = rt.broadcast_object(
+            self.path is not None and os.path.exists(self.path))
+        if not present:
+            return None
+        f, iters, active, it = super().load()
+        c = self.cohort
+        local = np.full((f.shape[0], c.m_pad), self.pad_value, np.float32)
+        local[:, : c.n_local] = f[:, c.lo : c.hi]
+        return local, iters, active, it
+
+    def clear(self) -> None:
+        rt = self.cohort.runtime
+        rt.barrier()  # no rank is still reading the file
+        if rt.is_primary():
+            super().clear()
+
+
+def make_checkpoint(path: Optional[str], cohort, pad_value: float):
+    """The checkpoint of a chunked EM over ``cohort``'s site axis, or None
+    without a ``path``; ``pad_value`` is what padded sites of the panel
+    hold."""
+    if not path:
+        return None
+    if cohort.runtime.world == 1:
+        return EMCheckpoint(path)
+    return ShardedEMCheckpoint(path, cohort, pad_value)

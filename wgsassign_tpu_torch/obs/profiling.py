@@ -16,11 +16,16 @@ from collections import defaultdict
 
 
 class RunTimer:
-    """Accumulating phase timer; prints a run summary."""
+    """Accumulating phase timer; prints a run summary.  ``results`` holds
+    what the CLI's sections computed (``reference_af``, ``loo``,
+    ``reference_z``, ``assignment_z``: their result objects; ``mesh``: the
+    ranks, backend and device), for a caller that drives ``main`` from
+    Python and wants more than the output files hold."""
 
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self.results = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):

@@ -11,7 +11,13 @@ count matches an independent run.
 
 These are the plain versions, iterating one update per loop step on the
 host.  The main path runs the chunked EMs of :mod:`.fused_em` instead,
-which take T iterations per kernel launch.
+which take T iterations per kernel launch; these run under ``--no_pallas``
+and for a population above a kernel's member bound.
+
+With several ranks each rank holds a window of the site axis; ``reduce``
+(``Runtime.all_reduce_sum``) sums each iteration's squared-update sums over
+the ranks before the RMSE is formed, so every rank stops at the same
+iteration.  ``m_real`` is then the global site count.
 """
 
 from __future__ import annotations
@@ -37,11 +43,18 @@ def em_weights(g0, g1, f):
     return (p1 + 2.0 * p2) / (2.0 * (p0 + p1 + p2))
 
 
-def _masked_rmse(f_new, f_old, site_weight, m_real):
+def _summed(sq, reduce):
+    """``sq`` summed over the ranks, back on its own device."""
+    if reduce is None:
+        return sq
+    return reduce(sq).to(sq.device)
+
+
+def _masked_rmse(f_new, f_old, site_weight, m_real, reduce=None):
     """Per-column RMSE over real (unpadded) sites: sqrt(sum(w*d^2)/m)."""
     d = f_new - f_old
     sq = torch.sum(d * d * site_weight[:, None], dim=0)
-    return torch.sqrt(sq / m_real)
+    return torch.sqrt(_summed(sq, reduce) / m_real)
 
 
 def _iterate(update, f0, n_problems, diff_fn, max_iter, tol, device):
@@ -65,7 +78,7 @@ def _iterate(update, f0, n_problems, diff_fn, max_iter, tol, device):
 
 
 def em_maf_pops(g0, g1, membership, pop_index, site_weight, m_real,
-                max_iter: int, tol):
+                max_iter: int, tol, reduce=None):
     """All-K-population MAF EM.
 
     Args:
@@ -95,12 +108,13 @@ def em_maf_pops(g0, g1, membership, pop_index, site_weight, m_real,
     f0 = torch.full((m, k), 0.25, dtype=_F32, device=g0.device)
     return _iterate(
         update, f0, k,
-        lambda fn, fo: _masked_rmse(fn, fo, site_weight, m_real),
+        lambda fn, fo: _masked_rmse(fn, fo, site_weight, m_real, reduce),
         max_iter, tol, g0.device,
     )
 
 
-def em_maf_loo_group(g0p, g1p, site_weight, m_real, max_iter: int, tol):
+def em_maf_loo_group(g0p, g1p, site_weight, m_real, max_iter: int, tol,
+                     reduce=None):
     """Batched leave-one-out MAF EM for one population.
 
     ``g0p``/``g1p`` are the members' GLs ``[n_p, M]`` (site-minor); row
@@ -125,27 +139,28 @@ def em_maf_loo_group(g0p, g1p, site_weight, m_real, max_iter: int, tol):
 
     def diff(fn, fo):
         d = fn - fo
-        return torch.sqrt(torch.sum(d * d * site_weight[None, :], dim=1)
-                          / m_real)
+        sq = torch.sum(d * d * site_weight[None, :], dim=1)
+        return torch.sqrt(_summed(sq, reduce) / m_real)
 
     f0 = torch.full((npop, m), 0.25, dtype=_F32, device=g0p.device)
     return _iterate(update, f0, npop, diff, max_iter, tol, g0p.device)
 
 
-def _subset_rmse(site_weight, m_real, device):
+def _subset_rmse(site_weight, m_real, device, reduce=None):
     """Per-problem RMSE of an update over its own kept sites:
     ``sqrt(sum_s(d^2 * sw[b, s]) / m_real[b])``."""
     m_real = torch.as_tensor(m_real, dtype=_F32, device=device)
 
     def diff(fn, fo):
         d = fn - fo
-        return torch.sqrt(torch.sum(d * d * site_weight, dim=1) / m_real)
+        sq = torch.sum(d * d * site_weight, dim=1)
+        return torch.sqrt(_summed(sq, reduce) / m_real)
 
     return diff
 
 
 def em_maf_sites_batch(g0p, g1p, member_mask, site_weight, m_real,
-                       max_iter: int, tol):
+                       max_iter: int, tol, reduce=None):
     """``B`` independent one-population MAF EMs over per-problem site
     subsets (the z-score reference mode's gathered form).
 
@@ -171,12 +186,12 @@ def em_maf_sites_batch(g0p, g1p, member_mask, site_weight, m_real,
 
     f0 = torch.full((b, s), 0.25, dtype=_F32, device=g0p.device)
     return _iterate(update, f0, b,
-                    _subset_rmse(site_weight, m_real, g0p.device),
+                    _subset_rmse(site_weight, m_real, g0p.device, reduce),
                     max_iter, tol, g0p.device)
 
 
 def em_maf_loo_subset(g0p, g1p, leave_out, site_weight, m_real,
-                      max_iter: int, tol):
+                      max_iter: int, tol, reduce=None):
     """``B`` leave-one-out MAF EMs of one population over the full site
     axis (the z-score reference mode's loo-structured form).
 
@@ -208,7 +223,7 @@ def em_maf_loo_subset(g0p, g1p, leave_out, site_weight, m_real,
 
     f0 = torch.full((b, m), 0.25, dtype=_F32, device=g0p.device)
     return _iterate(update, f0, b,
-                    _subset_rmse(site_weight, m_real, g0p.device),
+                    _subset_rmse(site_weight, m_real, g0p.device, reduce),
                     max_iter, tol, g0p.device)
 
 

@@ -14,6 +14,12 @@ panels stay on the device.
 
 Padded sites start at ``_EM_EPS``, the fixed point of the (1, 0) padding GL
 pattern, so they add exactly 0 to every ``sq``.
+
+With several ranks each rank runs the chunks on its window of the site axis;
+``reduce`` (``Runtime.all_reduce_sum``) sums ``sq`` over the ranks before
+the host reads it, so every rank derives the same RMSEs, limits and replay
+decision (counterpart of the ``psum`` in the JAX package's
+``_sharded_*_chunk_fn``).
 """
 
 from __future__ import annotations
@@ -59,6 +65,17 @@ def _jax_file_layout(f: np.ndarray, rows: int, m_real: int) -> np.ndarray:
     return out
 
 
+def _fit_panel(arr: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """A checkpoint panel cut to ``[rows, cols]``: a JAX-written file
+    carries padded problem rows and sites, which are cropped; a panel with
+    fewer site columns than ``cols`` (written by a run with another padding)
+    is filled up with ``_EM_EPS``, the value padded sites hold."""
+    out = np.full((rows, cols), _EM_EPS, dtype=np.float32)
+    src = arr[:rows, :cols]
+    out[:, : src.shape[1]] = src
+    return out
+
+
 def _use_jax_layout(checkpoint, rows: int, m_real: int):
     if checkpoint is not None:
         checkpoint.file_layout = functools.partial(
@@ -78,6 +95,7 @@ def em_maf_pops_fused(
     fast_math: bool = True,
     return_device_panel: bool = False,
     chunk_op=em_chunk,
+    reduce=None,
 ):
     """All-K-population MAF EM in chunks of ``chunk`` fused iterations.
 
@@ -89,7 +107,9 @@ def em_maf_pops_fused(
     periodic save and resume of the chunk state; ``fast_math`` picks the
     EM weight's op order (``Runtime.fast_math``).  ``chunk_op`` is the chunk
     function: :func:`em_chunk` (kernel on a GPU, twin on the CPU), or its
-    twin where a check on the GPU compares the two.
+    twin where a check on the GPU compares the two.  ``reduce`` sums a
+    tensor over the ranks (see the module docstring); ``m_real`` is then the
+    global site count.
     """
     membership = np.asarray(membership, np.float32)
     n, k = membership.shape
@@ -101,8 +121,7 @@ def em_maf_pops_fused(
         np.argmax(membership, axis=1).astype(np.int32)).to(device)
 
     def put_ft(arr):
-        # a JAX-written file carries the lane-padded panel: crop it
-        return torch.from_numpy(np.ascontiguousarray(arr[:k, :m])).to(device)
+        return torch.from_numpy(_fit_panel(arr, k, m)).to(device)
 
     def run_chunk(ft_in, limits_vec, T):
         limits = torch.from_numpy(limits_vec).to(device)
@@ -112,7 +131,8 @@ def em_maf_pops_fused(
     ft = _device_init_ft_from_weight(site_weight, (k, m))
     _use_jax_layout(checkpoint, k, m_real)
     ft, iters, active = _drive_chunks(
-        run_chunk, put_ft, ft, k, max_iter, tol, m_real, chunk, checkpoint
+        run_chunk, put_ft, ft, k, max_iter, tol, m_real, chunk, checkpoint,
+        reduce,
     )
     if return_device_panel:
         return ft, iters, ~active
@@ -121,7 +141,7 @@ def em_maf_pops_fused(
 
 
 def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
-                  chunk, checkpoint):
+                  chunk, checkpoint, reduce=None):
     """Shared chunk/replay orchestration for the fused EMs.
 
     ``run_chunk(ft, limits [P] float32 numpy, T)`` runs T fused iterations
@@ -134,7 +154,9 @@ def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
     own convergence iteration.
 
     ``m_real`` may be a scalar (shared RMSE denominator) or a ``[P]``
-    vector (per-problem site counts).
+    vector (per-problem site counts).  With ``reduce`` the chunk's ``sq`` is
+    summed over the ranks before the host reads it: every decision below is
+    taken from that sum alone, so the ranks stay in step.
 
     Returns ``(ft, iters [P] int32, active [P] bool)``.
     """
@@ -156,6 +178,8 @@ def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
         limits_vec = np.where(active, T, 0).astype(np.float32)
         ft_snapshot = ft
         ft, sq = run_chunk(ft, limits_vec, T)
+        if reduce is not None:
+            sq = reduce(sq)
         # the one device->host sync of the chunk
         rmse = np.sqrt(np.maximum(sq.cpu().numpy(), 0.0) / m_real_vec[None, :])
         # first iteration (within chunk) at which each active problem converged
@@ -193,6 +217,8 @@ def em_maf_loo_group_fused(
     checkpoint=None,
     fast_math: bool = True,
     chunk_op=loo_chunk,
+    reduce=None,
+    n_local=None,
 ):
     """Batched leave-one-out EM for one population in chunks of ``chunk``
     fused iterations.
@@ -201,24 +227,26 @@ def em_maf_loo_group_fused(
     em_maf_loo_group`: ``g0p``/``g1p`` are the members' ``[n_p, M]`` GL
     panels (sites >= ``m_real`` hold the (1, 0) padding pattern); returns
     ``(f [n_p, M] on the device, iters [n_p] int32, converged [n_p] bool)``.
-    ``fast_math`` and ``chunk_op`` as in :func:`em_maf_pops_fused`.
+    ``fast_math``, ``chunk_op`` and ``reduce`` as in
+    :func:`em_maf_pops_fused`; with ``reduce``, ``m_real`` is the global
+    site count and ``n_local`` the real sites of this rank's window.
     """
     n_p, m = g0p.shape
     device = g0p.device
 
     def put_ft(arr):
-        # a JAX-written file carries padded problem rows and sites: crop
-        return torch.from_numpy(
-            np.ascontiguousarray(arr[:n_p, :m])).to(device)
+        return torch.from_numpy(_fit_panel(arr, n_p, m)).to(device)
 
     def run_chunk(ft_in, limits_vec, T):
         limits = torch.from_numpy(limits_vec).to(device)
         return chunk_op(g0p, g1p, ft_in, limits, n_p, T, fast_math)
 
-    ft = _device_init_ft((n_p, m), m_real, device)
+    ft = _device_init_ft((n_p, m), m_real if n_local is None else n_local,
+                         device)
     _use_jax_layout(checkpoint, -(-n_p // 8) * 8, m_real)
     ft, iters, active = _drive_chunks(
-        run_chunk, put_ft, ft, n_p, max_iter, tol, m_real, chunk, checkpoint
+        run_chunk, put_ft, ft, n_p, max_iter, tol, m_real, chunk, checkpoint,
+        reduce,
     )
     return ft, iters, ~active
 
@@ -234,6 +262,7 @@ def em_maf_loo_subset_fused(
     chunk: int = 8,
     fast_math: bool = True,
     chunk_op=zloo_chunk,
+    reduce=None,
 ):
     """B leave-one-out EMs of one population over the full site axis, in
     chunks of ``chunk`` fused iterations (the z-score reference mode's
@@ -244,8 +273,8 @@ def em_maf_loo_subset_fused(
     member panels, ``leave_out`` the ``[B]`` member rows left out,
     ``site_weight`` the ``[B, M]`` kept-site masks on the device and
     ``m_real`` the ``[B]`` kept-site counts; returns ``(f [B, M] on the
-    device, iters [B] int32, converged [B] bool)``.  ``fast_math`` and
-    ``chunk_op`` as in :func:`em_maf_pops_fused`.
+    device, iters [B] int32, converged [B] bool)``.  ``fast_math``,
+    ``chunk_op`` and ``reduce`` as in :func:`em_maf_pops_fused`.
     """
     n_p, m = g0p.shape
     device = g0p.device
@@ -259,7 +288,7 @@ def em_maf_loo_subset_fused(
 
     ft = torch.full((b, m), 0.25, dtype=_F32, device=device)
     ft, iters, active = _drive_chunks(
-        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None
+        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce
     )
     return ft, iters, ~active
 
@@ -275,6 +304,7 @@ def em_maf_sites_batch_fused(
     chunk: int = 8,
     fast_math: bool = True,
     chunk_op=sites_chunk,
+    reduce=None,
 ):
     """B independent one-population EMs over gathered ``[B, P, S]`` member
     panels, in chunks of ``chunk`` fused iterations (the z-score reference
@@ -284,7 +314,8 @@ def em_maf_sites_batch_fused(
     em_maf_sites_batch`: ``member_mask`` ``[B, P]``, ``site_weight``
     ``[B, S]``, ``m_real`` the ``[B]`` real-site counts; returns ``(f [B,
     S] on the device, iters [B] int32, converged [B] bool)``.
-    ``fast_math`` and ``chunk_op`` as in :func:`em_maf_pops_fused`.
+    ``fast_math``, ``chunk_op`` and ``reduce`` as in
+    :func:`em_maf_pops_fused`.
     """
     b, _p, s = g0p.shape
     device = g0p.device
@@ -302,6 +333,6 @@ def em_maf_sites_batch_fused(
 
     ft = torch.full((b, s), 0.25, dtype=_F32, device=device)
     ft, iters, active = _drive_chunks(
-        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None
+        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce
     )
     return ft, iters, ~active

@@ -18,6 +18,13 @@ leave-one-out path's in-place-AF semantics.  The unselected forms
 ``[block, K, M]`` float32 temporaries stay within :data:`BLOCK_ELEMENTS`:
 the JAX op fuses the ``[M, N, K]`` product into the site reduction, a
 plain torch broadcast would materialise it (3.6 GB at 1M x 180 x 5).
+
+With several ranks each rank sums its window of the site axis and ``reduce``
+(``Runtime.all_reduce_sum``) adds the ranks' ``[N, K]`` or ``[N, K, P]``
+sums, in the dtype of the sum: float64, or float32 under ``--f32_sums``.
+Partition p holds the sites with ``s % P == p``; every rank's window starts
+at a multiple of P, so a site's partition does not depend on the number of
+ranks.
 """
 
 from __future__ import annotations
@@ -62,16 +69,18 @@ def _selected_site_ll(g0, g1, af_bank_t, col_idx, site_weight):
         yield rows, torch.log(like) * site_weight
 
 
-def _selected_sums(g0, g1, af_bank_t, col_idx, site_weight, dtype):
+def _selected_sums(g0, g1, af_bank_t, col_idx, site_weight, dtype,
+                   reduce=None):
     n, k = col_idx.shape
     out = torch.empty((n, k), dtype=dtype, device=g0.device)
     for rows, ll in _selected_site_ll(g0, g1, af_bank_t, col_idx,
                                       site_weight):
         out[rows] = torch.sum(ll, dim=2, dtype=dtype)
-    return out
+    return out if reduce is None else reduce(out)
 
 
-def assign_loglik_selected(g0, g1, af_bank_t, col_idx, site_weight):
+def assign_loglik_selected(g0, g1, af_bank_t, col_idx, site_weight,
+                           reduce=None):
     """``[N, K]`` float32 bank-selected log-likelihoods, float32 sums.
 
     Args:
@@ -81,19 +90,19 @@ def assign_loglik_selected(g0, g1, af_bank_t, col_idx, site_weight):
       site_weight: float32 ``[M]``.
     """
     return _selected_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                          torch.float32)
+                          torch.float32, reduce)
 
 
 def assign_loglik_selected_f64(g0, g1, af_bank_t, col_idx,
-                               site_weight) -> np.ndarray:
+                               site_weight, reduce=None) -> np.ndarray:
     """``[N, K]`` bank-selected log-likelihoods with float64 site sums
     (the LOO path's sum, reference glassy.py:101).  Returns np.float64."""
     return _selected_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                          torch.float64).cpu().numpy()
+                          torch.float64, reduce).cpu().numpy()
 
 
 def _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                             num_partitions: int, dtype):
+                             num_partitions: int, dtype, reduce=None):
     """``[N, K, P]`` partition sums; partition p holds the sites with
     ``s % P == p`` of the (padded) site axis."""
     m = g0.shape[0]
@@ -108,24 +117,26 @@ def _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
                                       site_weight):
         out[rows] = torch.sum(ll.reshape(ll.shape[0], k, m // p, p), dim=2,
                               dtype=dtype)
-    return out
+    return out if reduce is None else reduce(out)
 
 
 def assign_loglik_selected_partitioned(g0, g1, af_bank_t, col_idx,
-                                       site_weight, num_partitions: int):
+                                       site_weight, num_partitions: int,
+                                       reduce=None):
     """Partitioned form of :func:`assign_loglik_selected`, float32 sums.
     Returns ``(ll [N, K], parts [N, P, K])`` as float32 tensors."""
     parts = _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                                     num_partitions, torch.float32)
+                                     num_partitions, torch.float32, reduce)
     return parts.sum(dim=2), parts.permute(0, 2, 1).contiguous()
 
 
 def assign_loglik_selected_partitioned_f64(g0, g1, af_bank_t, col_idx,
-                                           site_weight, num_partitions: int):
+                                           site_weight, num_partitions: int,
+                                           reduce=None):
     """``(ll [N, K], parts [N, P, K])`` with float64 site sums, as NumPy
     float64 arrays; ``ll`` is the sum of the partition sums."""
     parts = _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                                     num_partitions, torch.float64)
+                                     num_partitions, torch.float64, reduce)
     parts = parts.cpu().numpy()
     return parts.sum(axis=2), np.transpose(parts, (0, 2, 1))
 
@@ -140,7 +151,7 @@ def _identity_columns(n: int, af) -> tuple:
     return af.t().contiguous(), col_idx
 
 
-def assign_loglik(g0, g1, af, site_weight):
+def assign_loglik(g0, g1, af, site_weight, reduce=None):
     """Full ``[N, K]`` assignment log-likelihood matrix, float32 sums.
 
     Args:
@@ -151,35 +162,38 @@ def assign_loglik(g0, g1, af, site_weight):
     Returns: float32 ``[N, K]`` tensor.
     """
     bank, col_idx = _identity_columns(g0.shape[1], af)
-    return assign_loglik_selected(g0, g1, bank, col_idx, site_weight)
+    return assign_loglik_selected(g0, g1, bank, col_idx, site_weight, reduce)
 
 
-def assign_loglik_f64(g0, g1, af, site_weight) -> np.ndarray:
+def assign_loglik_f64(g0, g1, af, site_weight, reduce=None) -> np.ndarray:
     """``[N, K]`` assignment log-likelihoods with float64 site sums
     (reference glassy.py:38).  Returns np.float64."""
     bank, col_idx = _identity_columns(g0.shape[1], af)
-    return assign_loglik_selected_f64(g0, g1, bank, col_idx, site_weight)
+    return assign_loglik_selected_f64(g0, g1, bank, col_idx, site_weight,
+                                      reduce)
 
 
-def assign_loglik_partitioned(g0, g1, af, site_weight, num_partitions: int):
+def assign_loglik_partitioned(g0, g1, af, site_weight, num_partitions: int,
+                              reduce=None):
     """Per-partition float32 sums ``[P, N, K]``: partition p holds the sites
     with ``s % P == p``.  The (padded) site count must be a multiple of P."""
     bank, col_idx = _identity_columns(g0.shape[1], af)
     parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
-                                     num_partitions, torch.float32)
+                                     num_partitions, torch.float32, reduce)
     return parts.permute(2, 0, 1)
 
 
 def assign_loglik_partitioned_f64(g0, g1, af, site_weight,
-                                  num_partitions: int) -> np.ndarray:
+                                  num_partitions: int,
+                                  reduce=None) -> np.ndarray:
     """Partitioned sums ``[P, N, K]`` with float64 site sums, as NumPy."""
     bank, col_idx = _identity_columns(g0.shape[1], af)
     parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
-                                     num_partitions, torch.float64)
+                                     num_partitions, torch.float64, reduce)
     return np.transpose(parts.cpu().numpy(), (2, 0, 1))
 
 
-def check_loglik_inputs(g0, g1, af, site_weight) -> None:
+def check_loglik_inputs(g0, g1, af, site_weight, reduce=None) -> None:
     """Sanitizer for the reachable ``log(0)``: malformed GL triples
     (negative GLs, or g0+g1 > 1 making g2 negative) drive the per-site
     likelihood to zero or below, which the likelihood passes would fold
@@ -193,6 +207,8 @@ def check_loglik_inputs(g0, g1, af, site_weight) -> None:
     bad = 0
     for _, like in _selected_site_like(g0, g1, bank, col_idx):
         bad += int((((like <= 0.0) | torch.isnan(like)) & weighted).sum())
+    if reduce is not None:  # every rank raises, or none
+        bad = int(reduce(torch.tensor(bad, device=g0.device)))
     if bad:
         raise ValueError(
             f"non-positive assignment likelihood at {bad} (site, individual, "
