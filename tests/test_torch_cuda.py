@@ -35,17 +35,20 @@ from wgsassign_tpu_torch.ops.fused_em import (
 )
 from wgsassign_tpu_torch.ops.loo_chunk import (
     loo_chunk,
+    loo_chunk_geometry,
     loo_chunk_twin,
     max_loo_members,
 )
 from wgsassign_tpu_torch.ops.sites_chunk import (
     max_sites_members,
     sites_chunk,
+    sites_chunk_geometry,
     sites_chunk_twin,
 )
 from wgsassign_tpu_torch.ops.zloo_chunk import (
     max_zloo_members,
     zloo_chunk,
+    zloo_chunk_geometry,
     zloo_chunk_twin,
 )
 
@@ -146,28 +149,30 @@ def test_loo_chunk_kernel_matches_twin(cuda, fast_math, n_real, p, m, limits):
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
-def test_loo_chunk_member_bound(cuda):
-    """At the bound the kernel runs and agrees with the twin; one member
-    more raises before any launch."""
-    bound, m, T = max_loo_members(), 40, 2
+@pytest.mark.parametrize("fast_math", [True, False])
+def test_loo_chunk_member_bound(cuda, fast_math):
+    """At the staging bound and one member above it (the unstaged kernel,
+    which reads the members from the global panels) the kernel agrees with
+    the twin, on a ragged site axis, with mixed limits."""
+    bound, m, T = max_loo_members(), 40, 3
     assert bound == 908
     g0p, g1p = _gls(bound + 1, m, 12)
     ft = np.random.default_rng(13).uniform(
         0.05, 0.95, size=(bound + 1, m)).astype(np.float32)
     g0d, g1d, ftd = (torch.from_numpy(a).to(cuda) for a in (g0p, g1p, ft))
-    lim = torch.full((bound,), float(T), device=cuda)
-    args = (g0d[:bound].contiguous(), g1d[:bound].contiguous(),
-            ftd[:bound].contiguous(), lim)
-    f_k, sq_k = loo_chunk(*args, bound, T)
-    f_t, sq_t = loo_chunk_twin(*args, bound, T)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
-    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
-    before = _kernels.launches["loo_chunk"]
-    with pytest.raises(ValueError, match="908 members"):
-        loo_chunk(g0d, g1d, ftd, torch.full((bound + 1,), float(T),
-                                            device=cuda), bound + 1, T)
-    assert _kernels.launches["loo_chunk"] == before
+    for n_p in (bound, bound + 1):
+        lim = torch.full((n_p,), float(T), device=cuda)
+        lim[1], lim[6], lim[n_p - 1] = 0.0, 2.0, 1.0
+        args = (g0d[:n_p].contiguous(), g1d[:n_p].contiguous(),
+                ftd[:n_p].contiguous(), lim)
+        assert (loo_chunk_geometry(n_p)[1] == 0) == (n_p > bound)
+        before = _kernels.launches["loo_chunk"]
+        f_k, sq_k = loo_chunk(*args, n_p, T, fast_math=fast_math)
+        assert _kernels.launches["loo_chunk"] == before + 1
+        f_t, sq_t = loo_chunk_twin(*args, n_p, T, fast_math=fast_math)
+        torch.cuda.synchronize()
+        assert float((f_k - f_t).abs().max()) == 0.0
+        torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
 def test_wrapper_rejects_bad_operands(cuda):
@@ -336,9 +341,9 @@ def test_sites_chunk_finished_problem_with_nan_panel(cuda):
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
-def test_zloo_member_bound_raises(cuda):
-    """At the bound the kernel runs and agrees with the twin; one member
-    more raises before any launch, whatever T and B."""
+def test_zloo_above_the_staging_bound(cuda):
+    """At the staging bound and one member above it (the unstaged kernel)
+    the kernel agrees with the twin, whatever T and B."""
     bound, m, T = max_zloo_members(), 40, 2
     assert bound == 908
     g0p, g1p = _gls(bound + 1, m, 12)
@@ -347,40 +352,42 @@ def test_zloo_member_bound_raises(cuda):
             torch.ones((5, m), device=cuda),
             torch.tensor([0, 500, 907, 907, 3], dtype=torch.int32,
                          device=cuda),
-            torch.full((5,), float(T), device=cuda))
-    args = (g0d[:bound].contiguous(), g1d[:bound].contiguous(), *rest)
-    f_k, sq_k = zloo_chunk(*args, bound, T)
-    f_t, sq_t = zloo_chunk_twin(*args, bound, T)
-    torch.cuda.synchronize()
-    assert float((f_k - f_t).abs().max()) == 0.0
-    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
-    before = _kernels.launches["zloo_chunk"]
-    with pytest.raises(ValueError, match=f"bound of {bound} members"):
-        zloo_chunk(g0d, g1d, *rest, bound + 1, T)
-    assert _kernels.launches["zloo_chunk"] == before
+            torch.tensor([2.0, 2.0, 1.0, 0.0, 2.0], device=cuda))
+    for n_p in (bound, bound + 1):
+        args = (g0d[:n_p].contiguous(), g1d[:n_p].contiguous(), *rest)
+        assert (zloo_chunk_geometry(n_p, 5)[1] == 0) == (n_p > bound)
+        before = _kernels.launches["zloo_chunk"]
+        f_k, sq_k = zloo_chunk(*args, n_p, T)
+        assert _kernels.launches["zloo_chunk"] == before + 1
+        f_t, sq_t = zloo_chunk_twin(*args, n_p, T)
+        torch.cuda.synchronize()
+        assert float((f_k - f_t).abs().max()) == 0.0
+        torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
-def test_sites_member_bound_raises(cuda):
-    """At the bound the kernel runs and agrees with the twin; one member
-    more raises before any launch."""
+@pytest.mark.parametrize("mask_kind", ["random", "fractional"])
+def test_sites_above_the_staging_bound(cuda, mask_kind):
+    """At the staging bound and one member above it (the unstaged kernel)
+    the kernel agrees with the twin, for 0/1 masks and for masks with other
+    values."""
     bound, s, T = max_sites_members(), 40, 2
     assert bound == 907
-    g0p, g1p, ft, mask, sw, inv = _sites_case(2, bound + 1, s, "random", 14)
+    g0p, g1p, ft, mask, sw, _ = _sites_case(2, bound + 1, s, mask_kind, 14)
     full = [torch.from_numpy(a).to(cuda) for a in (g0p, g1p, ft, mask, sw)]
-    lim = torch.full((2,), float(T), device=cuda)
-    invd = torch.from_numpy(
-        (1.0 / mask[:, :bound].sum(axis=1)).astype(np.float32)).to(cuda)
-    args = (full[0][:, :bound].contiguous(), full[1][:, :bound].contiguous(),
-            full[2], full[3][:, :bound].contiguous(), full[4], lim, invd)
-    f_k, sq_k = sites_chunk(*args, T)
-    f_t, sq_t = sites_chunk_twin(*args, T)
-    torch.cuda.synchronize()
-    assert float((f_k - f_t).abs().max()) == 0.0
-    torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
-    before = _kernels.launches["sites_chunk"]
-    with pytest.raises(ValueError, match=f"bound of {bound} members"):
-        sites_chunk(*full, lim, torch.from_numpy(inv).to(cuda), T)
-    assert _kernels.launches["sites_chunk"] == before
+    lim = torch.tensor([float(T), 1.0], device=cuda)
+    for p in (bound, bound + 1):
+        invd = torch.from_numpy((1.0 / (mask[:, :p] != 0).sum(axis=1)).astype(
+            np.float32)).to(cuda)
+        args = (full[0][:, :p].contiguous(), full[1][:, :p].contiguous(),
+                full[2], full[3][:, :p].contiguous(), full[4], lim, invd)
+        assert (sites_chunk_geometry(p)[1] == 0) == (p > bound)
+        before = _kernels.launches["sites_chunk"]
+        f_k, sq_k = sites_chunk(*args, T)
+        assert _kernels.launches["sites_chunk"] == before + 1
+        f_t, sq_t = sites_chunk_twin(*args, T)
+        torch.cuda.synchronize()
+        assert float((f_k - f_t).abs().max()) == 0.0
+        torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
 
 
 def test_zscore_fused_ems_kernel_vs_twin(cuda):
@@ -509,11 +516,10 @@ def _big_population(m, seed):
     return beagle, population_map(names, ["big"] * 909 + ["small"] * 11), ad
 
 
-def test_loo_of_909_members_runs_the_plain_op_on_the_card(cuda, caplog):
-    """A population the data fits but the kernel's member tile does not:
-    the model warns, runs ``em_maf_loo_group`` on the card for it and the
-    kernel for the other population, and agrees with the CPU run; the
-    wrapper alone still raises (test_loo_chunk_member_bound)."""
+def test_loo_of_909_members_runs_the_kernel_on_the_card(cuda, caplog):
+    """A population whose member tile does not fit in shared memory runs
+    ``loo_chunk`` all the same (its unstaged form): no warning, no plain op,
+    and the result agrees with the CPU run's."""
     import logging
 
     from wgsassign_tpu_torch.models.common import to_device
@@ -533,11 +539,9 @@ def test_loo_of_909_members_runs_the_plain_op_on_the_card(cuda, caplog):
                             cohort=cohort, af_t_dev=ref.af_t_dev)
     finally:
         logger.removeHandler(caplog.handler)
-    assert got.engines == ("plain", "loo_chunk")
-    assert _kernels.launches["loo_chunk"] > before
-    assert any("population big of 909 members" in r.getMessage()
-               and "bound of 908 members" in r.getMessage()
-               for r in caplog.records)
+    assert got.engines == ("loo_chunk", "loo_chunk")
+    assert _kernels.launches["loo_chunk"] >= before + 2
+    assert not [r for r in caplog.records if r.levelno >= logging.WARNING]
     want = leave_one_out(beagle, ref.af, popmap, max_iter=3,
                          runtime=make_runtime("cpu"))
     assert want.engines == got.engines
@@ -546,9 +550,9 @@ def test_loo_of_909_members_runs_the_plain_op_on_the_card(cuda, caplog):
     np.testing.assert_array_equal(got.ll.argmax(1), want.ll.argmax(1))
 
 
-def test_reference_z_of_909_members_runs_the_plain_op_on_the_card(cuda):
-    """The same for the z-score EM: the big population's individuals take
-    ``em_maf_loo_subset``, the small one's ``zloo_chunk``."""
+def test_reference_z_of_909_members_runs_the_kernel_on_the_card(cuda):
+    """The same for the z-score EM: the big population's individuals and the
+    small one's all take ``zloo_chunk``."""
     from wgsassign_tpu_torch.models.common import to_device
     from wgsassign_tpu_torch.models.zscore import reference_z_scores
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
@@ -560,8 +564,8 @@ def test_reference_z_of_909_members_runs_the_plain_op_on_the_card(cuda):
     got = reference_z_scores(beagle, ad, popmap, **kw,
                              cohort=to_device(beagle, make_runtime(cuda)))
     assert got.structure == "loo-structured"
-    assert got.engine == "plain+zloo_chunk"
-    assert _kernels.launches["zloo_chunk"] > before
+    assert got.engine == "zloo_chunk"
+    assert _kernels.launches["zloo_chunk"] >= before + 2
     want = reference_z_scores(beagle, ad, popmap, **kw,
                               runtime=make_runtime("cpu"))
     np.testing.assert_array_equal(got.loci, want.loci)

@@ -173,7 +173,6 @@ def runs(files):
     for var in ("WGSA_COORDINATOR_ADDRESS", "WGSA_NUM_PROCESSES",
                 "WGSA_PROCESS_ID"):
         env.pop(var, None)
-    env["WGSA_COLLECTIVE_TIMEOUT"] = str(WAIT_S)
     # the workers write to files: nothing reads a pipe while this process
     # is busy with its own runs
     sinks = [(open(d / f"rank{rank}.out", "w"), open(d / f"rank{rank}.err", "w"))

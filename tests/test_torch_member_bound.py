@@ -1,14 +1,15 @@
-"""Above a kernel's member bound, and under ``--no_pallas``, the port's
-models run the plain EM ops on the same device instead of raising, as the
-JAX package falls back to its XLA path: a rule on the shape taken in the
-model, with a logged warning and a reported engine.  The kernel wrappers go
-on raising above their bounds.
+"""The kernels' member bounds (908, 908, 907 members) are where staging in
+shared memory ends, not where the kernels end: a larger population goes
+through the same chunked EM and the same kernel wrapper, whose launch
+geometry then asks for the kernel's unstaged form.  The models never leave
+the chunked EM for a shape; only ``--no_pallas`` runs the plain EM ops, and
+the result says which engine ran.
 
-The bounds (908, 908, 907 members) are patched low so that a 600 x 30 x 3
-cohort goes above them.  Each result is held against the JAX package's plain
-path (a one-device runtime with ``use_pallas=False``): equal EM iterations;
-LOO log-likelihoods rtol 1e-5, atol 2e-3 with identical argmax; z atol 1e-4
-with equal loci.
+The bounds are patched low so that a 600 x 30 x 3 cohort goes above them.
+Each result is held against the JAX package's plain path (a one-device
+runtime with ``use_pallas=False``): equal EM iterations; LOO
+log-likelihoods rtol 1e-5, atol 2e-3 with identical argmax; z atol 1e-4 with
+equal loci.
 """
 
 import logging
@@ -29,15 +30,9 @@ from wgsassign_tpu_torch.models import loo as tloo
 from wgsassign_tpu_torch.models import zscore as tz
 from wgsassign_tpu_torch.models.common import to_device
 from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
-from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk_geometry, max_loo_members
-from wgsassign_tpu_torch.ops.sites_chunk import (
-    max_sites_members,
-    sites_chunk_geometry,
-)
-from wgsassign_tpu_torch.ops.zloo_chunk import (
-    max_zloo_members,
-    zloo_chunk_geometry,
-)
+from wgsassign_tpu_torch.ops import loo_chunk as loo_mod
+from wgsassign_tpu_torch.ops import sites_chunk as sites_mod
+from wgsassign_tpu_torch.ops import zloo_chunk as zloo_mod
 from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
 M, N, K = 600, 30, 3
@@ -85,27 +80,33 @@ def _warnings(caplog):
     return [r.getMessage() for r in records.values()]
 
 
-@pytest.mark.parametrize("bound, engines", [
-    (10, ("plain", "loo_chunk", "loo_chunk")),
-    (5, ("plain", "plain", "plain")),
-    (14, ("loo_chunk", "loo_chunk", "loo_chunk")),
-])
-def test_loo_above_the_bound_runs_the_plain_op(data, jax_plain, monkeypatch,
-                                               logged, bound, engines):
+@pytest.mark.parametrize("bound, unstaged", [
+    (10, ("a",)), (5, ("a", "b", "c")), (14, ())])
+def test_loo_above_the_bound_stays_in_the_chunked_em(data, jax_plain,
+                                                     monkeypatch, logged,
+                                                     bound, unstaged):
+    """Every population reaches the chunk wrapper with its own size; those
+    above the staging bound get the unstaged launch geometry, no warning and
+    the same engine."""
     beagle, popmap, _ = data
     _, ref, loo_ref = jax_plain
-    monkeypatch.setattr(tloo, "max_loo_members", lambda: bound)
+    monkeypatch.setattr(loo_mod, "max_loo_members", lambda: bound)
+    seen = []
+
+    def spy(g0p, g1p, ft, limits, n_real, T, fast_math=True):
+        seen.append(n_real)
+        return loo_mod.loo_chunk(g0p, g1p, ft, limits, n_real, T, fast_math)
+
     cohort = to_device(beagle, make_runtime("cpu"))
-    res = tloo.leave_one_out(beagle, ref.af, popmap, cohort=cohort)
-    assert res.engines == engines
-    warned = _warnings(logged)
-    assert len(warned) == engines.count("plain")
-    for pop, size, engine in zip(popmap.pops, popmap.pop_sizes, engines):
-        hits = [w for w in warned if f"population {pop} of {size} members" in w]
-        assert len(hits) == (engine == "plain")
-        if hits:
-            assert f"bound of {bound} members" in hits[0]
-            assert "em_maf_loo_group" in hits[0]
+    res = tloo.leave_one_out(beagle, ref.af, popmap, cohort=cohort,
+                             chunk_op=spy)
+    assert res.engines == ("loo_chunk",) * K
+    assert not _warnings(logged)
+    assert sorted(set(seen)) == sorted(int(n) for n in popmap.pop_sizes)
+    for pop, size in zip(popmap.pops, popmap.pop_sizes):
+        warps, smem = loo_mod.loo_chunk_geometry(int(size))
+        assert (smem == 0) == (pop in unstaged)
+        assert 1 <= warps <= loo_mod.LOO_MAX_WARPS
     np.testing.assert_array_equal(res.iters, loo_ref.iters)
     np.testing.assert_array_equal(res.converged, loo_ref.converged)
     np.testing.assert_allclose(res.ll, loo_ref.ll, rtol=1e-5, atol=2e-3)
@@ -137,13 +138,16 @@ def test_use_kernels_picks_the_engine(data, jax_plain, logged, use_kernels,
 
 
 @pytest.mark.parametrize("single_read, patched, structure, engine", [
-    (False, "max_zloo_members", "loo-structured", "plain"),
+    (False, "max_zloo_members", "loo-structured", "zloo_chunk"),
     (False, None, "loo-structured", "zloo_chunk"),
-    (True, "max_sites_members", "gathered", "plain"),
+    (True, "max_sites_members", "gathered", "sites_chunk"),
     (True, None, "gathered", "sites_chunk"),
 ])
 def test_reference_z_above_the_bound(data, jax_plain, monkeypatch, logged,
                                      single_read, patched, structure, engine):
+    """With the staging bound patched to 8 members the z-score EMs run the
+    same chunk wrappers (populations of 14, 10 and 6), warn of nothing and
+    change no iteration count."""
     from wgsassign_tpu.models.zscore import reference_z_scores as jax_z
 
     beagle, popmap, ad = data
@@ -151,28 +155,33 @@ def test_reference_z_above_the_bound(data, jax_plain, monkeypatch, logged,
     want = jax_z(beagle, ad, popmap, single_read_threshold=single_read,
                  runtime=rt_jax)
     if patched:
-        monkeypatch.setattr(tz, patched, lambda: 8)
+        mod = zloo_mod if patched == "max_zloo_members" else sites_mod
+        monkeypatch.setattr(mod, patched, lambda: 8)
+        assert zloo_mod.zloo_chunk_geometry(14, 4)[1] == (
+            0 if mod is zloo_mod else 8 * 14 * 32)
+        assert (sites_mod.sites_chunk_geometry(13)[1] == 0) == (
+            mod is sites_mod)
+    rows = []
+
+    def zloo_spy(g0p, *rest):
+        rows.append(g0p.shape[0])
+        return zloo_mod.zloo_chunk(g0p, *rest)
+
+    def sites_spy(g0p, *rest):
+        rows.append(g0p.shape[1])
+        return sites_mod.sites_chunk(g0p, *rest)
+
     cohort = to_device(beagle, make_runtime("cpu"))
     got = tz.reference_z_scores(beagle, ad, popmap,
                                 single_read_threshold=single_read,
-                                cohort=cohort)
+                                cohort=cohort, zloo_op=zloo_spy,
+                                sites_op=sites_spy)
     assert got.structure == structure
+    assert got.engine == engine and not _warnings(logged)
+    # member rows the wrappers saw: whole populations, or the widest LOO panel
+    assert set(rows) == ({13} if single_read else {14, 10, 6})
     np.testing.assert_array_equal(got.loci, want.loci)
     np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-4)
-    warned = _warnings(logged)
-    if patched == "max_zloo_members":
-        # populations a (14) and b (10) are above 8, c (6) is not
-        assert got.engine == "plain+zloo_chunk"
-        assert any("population a of 14 members" in w
-                   and "zloo_chunk kernel's bound of 8" in w for w in warned)
-        assert not any("population c" in w for w in warned)
-    elif patched:
-        assert got.engine == engine
-        assert len(warned) == 1  # once per run
-        assert "sites_chunk kernel's bound of 8" in warned[0]
-    else:
-        assert got.engine == engine and not warned
-    # the engine changes no iteration count
     monkeypatch.undo()
     base = tz.reference_z_scores(beagle, ad, popmap,
                                  single_read_threshold=single_read,
@@ -194,18 +203,20 @@ def test_no_pallas_z_scores_run_the_plain_ops(data):
         np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("geometry, args, bound", [
-    (loo_chunk_geometry, (), max_loo_members()),
-    (zloo_chunk_geometry, (4,), max_zloo_members()),
-    (sites_chunk_geometry, (), max_sites_members()),
+@pytest.mark.parametrize("geometry, args, bound, warps", [
+    (loo_mod.loo_chunk_geometry, (), loo_mod.max_loo_members(),
+     loo_mod.LOO_MAX_WARPS),
+    (zloo_mod.zloo_chunk_geometry, (4,), zloo_mod.max_zloo_members(), 1),
+    (sites_mod.sites_chunk_geometry, (), sites_mod.max_sites_members(),
+     sites_mod.SITES_WARPS[0]),
 ])
-def test_wrappers_still_raise_above_their_bound(geometry, args, bound):
-    """The model decides; the kernel wrapper never gives way by itself: its
-    launch geometry raises for one member above the bound."""
+def test_wrappers_take_any_population_size(geometry, args, bound, warps):
+    """The launch geometry never raises: at the bound the member tile is
+    staged in shared memory, one member above it the block takes none."""
     assert bound in (907, 908)
-    geometry(bound, *args)
-    with pytest.raises(ValueError, match=f"bound of {bound} members"):
-        geometry(bound + 1, *args)
+    assert geometry(bound, *args)[1] > 0
+    assert geometry(bound + 1, *args) == (warps, 0)
+    assert geometry(20 * bound, *args) == (warps, 0)
 
 
 def test_cli_reports_the_engine(data, tmp_path, monkeypatch, capsys, logged):
@@ -219,10 +230,12 @@ def test_cli_reports_the_engine(data, tmp_path, monkeypatch, capsys, logged):
     with open(ids, "w") as f:
         for i, lab in enumerate(popmap.pop_labels):
             f.write(f"Ind{i}\t{lab}\n")
-    monkeypatch.setattr(tloo, "max_loo_members", lambda: 10)
+    monkeypatch.setattr(loo_mod, "max_loo_members", lambda: 10)
     main(["--beagle", path, "--pop_af_IDs", ids, "--get_reference_af",
           "--loo", "-o", str(tmp_path / "o")], device="cpu")
     out = capsys.readouterr().out
-    assert "LOO EM engines: a=plain, b=loo_chunk, c=loo_chunk" in out
-    assert "(engine: plain)" in out
-    assert any("population a of 14 members" in w for w in _warnings(logged))
+    # population a (14 members) lies above the patched staging bound and
+    # is reported like the others
+    assert "LOO EM engines: a=loo_chunk, b=loo_chunk, c=loo_chunk" in out
+    assert "(engine: plain)" not in out
+    assert not _warnings(logged)

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from wgsassign_tpu.ops.pallas_emmaf import zloo_chunk_pallas
 from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.ops.zloo_chunk import (
+    ZLOO_MAX_WARPS,
     max_zloo_members,
     zloo_chunk,
     zloo_chunk_geometry,
@@ -125,6 +126,9 @@ def test_member_bound_raises():
     bound = max_zloo_members()
     assert bound == 908
     for b in (1, 64, 500):  # the bound depends on neither B nor T
-        assert zloo_chunk_geometry(bound, b)[1] <= _kernels.SMEM_LIMIT
-        with pytest.raises(ValueError, match="908 members"):
-            zloo_chunk_geometry(bound + 1, b)
+        assert 0 < zloo_chunk_geometry(bound, b)[1] <= _kernels.SMEM_LIMIT
+        # nothing raises above it any more: the geometry asks for the
+        # kernel's unstaged form (no shared memory)
+        for n_p in (bound + 1, 5000):
+            warps, smem = zloo_chunk_geometry(n_p, b)
+            assert smem == 0 and 1 <= warps <= ZLOO_MAX_WARPS

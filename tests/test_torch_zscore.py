@@ -262,6 +262,32 @@ def test_assignment_z_scores_match_jax(cohort_data, case):
                                    rtol=1e-4, atol=1e-4, err_msg=field)
 
 
+def test_assignment_z_scores_with_float64_sums(cohort_data):
+    """``sums_op`` with ``sum_dtype=torch.float64`` (what a check uses to
+    separate the rounding of the three z sums from other differences):
+    float64 sums come back, and z agrees with the float32-sum run to that
+    rounding."""
+    beagle, _, ad, labels = cohort_data
+    af = np.random.default_rng(3).uniform(0.05, 0.95, (M, K)).astype(
+        np.float32)
+    pops = np.asarray([f"pop{j}" for j in range(K)])
+    seen = []
+
+    def f64_sums(*args):
+        out = zscore_sums_batch_compact(*args, sum_dtype=torch.float64)
+        seen.extend(t.dtype for t in out)
+        return out
+
+    cohort = to_device(beagle, make_runtime("cpu"))
+    base = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort)
+    got = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort,
+                                 sums_op=f64_sums)
+    assert seen and set(seen) == {torch.float64}
+    np.testing.assert_array_equal(got.loci, base.loci)
+    np.testing.assert_allclose(got.z, base.z, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.w_obs, base.w_obs, rtol=1e-5)
+
+
 def test_assignment_af_dim_validation(cohort_data):
     beagle, _, ad, labels = cohort_data
     pops = np.asarray([f"pop{j}" for j in range(K)])

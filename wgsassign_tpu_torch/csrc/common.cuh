@@ -80,7 +80,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // The leave-one-out kernels (loo_chunk.cu, zloo_chunk.cu): a block owns
 // WG_TILE_SITES consecutive sites, a lane is a site, and the block's
-// [n_real, 32] tile of both member panels lies in shared memory.
+// [n_real, 32] tile of both member panels lies in shared memory, or, for a
+// population whose tile does not fit there, is read where it lies in the
+// global panels (loo_members' STAGED).
 constexpr int WG_TILE_SITES = 32;
 
 // Stage rows [0, n_rows) x sites [s0, s0 + 32) of two site-minor planes with
@@ -118,22 +120,34 @@ __device__ __forceinline__ void stage_member_tile(
   }
 }
 
-// Members [i0, i1) of the staged tile added to NB problems' sums, in
-// ascending order; sg0 / sg1 point at this lane's column.  MASKED: a
+// Members [i0, i1) of the member tile added to NB problems' sums, in
+// ascending order; sg0 / sg1 point at this lane's column.  STAGED: the tile
+// lies in shared memory, rows WG_TILE_SITES apart; otherwise sg0 / sg1 point
+// into the global panels themselves and rows are `ld` floats apart (a
+// population too large to stage: the warp's 128-byte row reads go through
+// L1 and L2, which keep the block's tile between iterations).  MASKED: a
 // problem's own left-out member j[q] adds an exact 0.0f instead of its
 // weight (a select, never a branch).  One (g0, g1, g2) read feeds NB
 // weights, and NB independent divide chains hide each other's latency.
-template <bool FAST, int NB, bool MASKED>
+template <bool FAST, int NB, bool MASKED, bool STAGED = true>
 __device__ __forceinline__ void loo_members(
     const float* __restrict__ sg0, const float* __restrict__ sg1, int i0,
-    int i1, const int (&j)[NB], const float (&f)[NB], float (&acc)[NB]) {
+    int i1, const int (&j)[NB], const float (&f)[NB], float (&acc)[NB],
+    long long ld = WG_TILE_SITES) {
   float omf[NB];
 #pragma unroll
   for (int q = 0; q < NB; ++q) omf[q] = 1.0f - f[q];
-  const float* pa = sg0 + i0 * WG_TILE_SITES;
-  const float* pb = sg1 + i0 * WG_TILE_SITES;
+  const float* pa;
+  const float* pb;
+  if constexpr (STAGED) {
+    pa = sg0 + i0 * WG_TILE_SITES;
+    pb = sg1 + i0 * WG_TILE_SITES;
+  } else {
+    pa = sg0 + i0 * ld;
+    pb = sg1 + i0 * ld;
+  }
 #pragma unroll 2
-  for (int i = i0; i < i1; ++i, pa += WG_TILE_SITES, pb += WG_TILE_SITES) {
+  for (int i = i0; i < i1; ++i) {
     const float a = *pa;
     const float b = *pb;
     const float c = 1.0f - a - b;
@@ -141,6 +155,13 @@ __device__ __forceinline__ void loo_members(
     for (int q = 0; q < NB; ++q) {
       const float w = em_w<FAST>(a, b, c, f[q], omf[q]);
       acc[q] += (MASKED && i == j[q]) ? 0.0f : w;
+    }
+    if constexpr (STAGED) {
+      pa += WG_TILE_SITES;
+      pb += WG_TILE_SITES;
+    } else {
+      pa += ld;
+      pb += ld;
     }
   }
 }

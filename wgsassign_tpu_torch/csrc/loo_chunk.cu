@@ -31,8 +31,14 @@
 //   it is shared by all the block's warps: at n_real = 36 a block takes
 //   9.2 KB, so the registers, not shared memory, set the occupancy: 36
 //   warps (the one-thread-per-site kernel this replaces could hold 24).
-//   The tile must fit the 227 KB: at most 908 members, where the wrapper
-//   raises.
+//   The tile fits the 227 KB up to 908 members.
+// - Above that (STAGED false, launched with no shared memory) nothing is
+//   staged: a lane reads its column of the global panels row by row, in the
+//   same order, so the sums round as the staged ones do.  A warp's read of a
+//   member is one 128-byte line, reused by all the block's problem tiles and
+//   iterations out of L1 and L2; between two reads lie JB weights of ~23
+//   instruction slots each, which hide most of a load's latency.  Lanes
+//   past M read the last site's column and contribute nothing.
 // - The member loop is split at the tile's own members: outside
 //   [j0, j0 + JB) no problem of the tile is left out, so the loop has no
 //   test; inside, the left-out member adds an exact 0.0f by a select.
@@ -59,16 +65,12 @@ namespace {
 constexpr int LOO_SITES = WG_TILE_SITES;  // ops/loo_chunk.py::LOO_SITES
 constexpr int JB = WG_LOO_JB;  // ops/loo_chunk.py::LOO_PROBLEM_TILE
 
-template <bool FAST>
+template <bool FAST, bool STAGED>
 __global__ void __launch_bounds__(256) loo_chunk_kernel(
     const float* __restrict__ g0p, const float* __restrict__ g1p,
     const float* __restrict__ ft_in, float* __restrict__ ft_out,
     const float* __restrict__ limits, float* __restrict__ sq_part, int P,
     int M, int n_real, int T, int aligned) {
-  extern __shared__ float4 smem4[];
-  float* sg0 = reinterpret_cast<float*>(smem4);  // [n_real][32]
-  float* sg1 = sg0 + n_real * LOO_SITES;         // [n_real][32]
-
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -77,11 +79,24 @@ __global__ void __launch_bounds__(256) loo_chunk_kernel(
   const long long s = s0 + lane;
   const bool real = s < M;
 
-  stage_member_tile(g0p, g1p, sg0, sg1, n_real, M, s0, aligned, lane, warp,
-                    n_warps, real, s);
-  __syncthreads();
-  sg0 += lane;
-  sg1 += lane;
+  // this lane's column of the member tile, and the distance between rows
+  const float* sg0;
+  const float* sg1;
+  const long long ld = STAGED ? LOO_SITES : M;
+  if constexpr (STAGED) {
+    extern __shared__ float4 smem4[];
+    float* t0 = reinterpret_cast<float*>(smem4);  // [n_real][32]
+    float* t1 = t0 + n_real * LOO_SITES;          // [n_real][32]
+    stage_member_tile(g0p, g1p, t0, t1, n_real, M, s0, aligned, lane, warp,
+                      n_warps, real, s);
+    __syncthreads();
+    sg0 = t0 + lane;
+    sg1 = t1 + lane;
+  } else {
+    const long long col = real ? s : (long long)M - 1;
+    sg0 = g0p + col;
+    sg1 = g1p + col;
+  }
 
   const float inv = 1.0f / ((float)n_real - 1.0f);
   const int n_tiles = (P + JB - 1) / JB;
@@ -113,9 +128,10 @@ __global__ void __launch_bounds__(256) loo_chunk_kernel(
         float acc[JB];
 #pragma unroll
         for (int q = 0; q < JB; ++q) acc[q] = 0.0f;
-        loo_members<FAST, JB, false>(sg0, sg1, 0, m0, j, f, acc);
-        loo_members<FAST, JB, true>(sg0, sg1, m0, m1, j, f, acc);
-        loo_members<FAST, JB, false>(sg0, sg1, m1, n_real, j, f, acc);
+        loo_members<FAST, JB, false, STAGED>(sg0, sg1, 0, m0, j, f, acc, ld);
+        loo_members<FAST, JB, true, STAGED>(sg0, sg1, m0, m1, j, f, acc, ld);
+        loo_members<FAST, JB, false, STAGED>(sg0, sg1, m1, n_real, j, f, acc,
+                                             ld);
 #pragma unroll
         for (int q = 0; q < JB; ++q) {
           const float f_new = em_clip(acc[q] * inv);
@@ -130,9 +146,10 @@ __global__ void __launch_bounds__(256) loo_chunk_kernel(
           const float f1[1] = {f[q]};
           float acc1[1] = {0.0f};
           const int own = min(j[q], n_real);
-          loo_members<FAST, 1, false>(sg0, sg1, 0, own, j1, f1, acc1);
-          loo_members<FAST, 1, false>(sg0, sg1, min(own + 1, n_real), n_real,
-                                      j1, f1, acc1);
+          loo_members<FAST, 1, false, STAGED>(sg0, sg1, 0, own, j1, f1, acc1,
+                                              ld);
+          loo_members<FAST, 1, false, STAGED>(sg0, sg1, min(own + 1, n_real),
+                                              n_real, j1, f1, acc1, ld);
           const float f_new = em_clip(acc1[0] * inv);
           d[q] = real ? f_new - f[q] : 0.0f;
           f[q] = f_new;
@@ -158,8 +175,14 @@ __global__ void __launch_bounds__(256) loo_chunk_kernel(
 using LooKernel = void (*)(const float*, const float*, const float*, float*,
                            const float*, float*, int, int, int, int, int);
 
-LooKernel loo_kernel(int fast_math) {
-  return fast_math ? loo_chunk_kernel<true> : loo_chunk_kernel<false>;
+// smem_bytes == 0 asks for the kernel that stages nothing.
+LooKernel loo_kernel(int fast_math, int smem_bytes) {
+  if (smem_bytes > 0) {
+    return fast_math ? loo_chunk_kernel<true, true>
+                     : loo_chunk_kernel<false, true>;
+  }
+  return fast_math ? loo_chunk_kernel<true, false>
+                   : loo_chunk_kernel<false, false>;
 }
 
 }  // namespace
@@ -172,7 +195,7 @@ WG_EXPORT int wg_loo_chunk(int device, const float* g0p, const float* g1p,
                            int aligned, int fast_math, void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  LooKernel kern = loo_kernel(fast_math);
+  LooKernel kern = loo_kernel(fast_math, smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -188,7 +211,7 @@ WG_EXPORT int wg_loo_chunk_occupancy(int device, int warps, int smem_bytes,
                                      int fast_math) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
-  LooKernel kern = loo_kernel(fast_math);
+  LooKernel kern = loo_kernel(fast_math, smem_bytes);
   err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return -(int)err;

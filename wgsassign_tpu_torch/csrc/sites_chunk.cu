@@ -52,8 +52,14 @@
 //   sq_part[32-site tile, T, B]; the caller sums the tiles in one fixed
 //   order.  No scratch in shared memory and no float atomics: the
 //   convergence decision reads these sums.
-// - The panel slice must fit the 227 KB: at most 907 members at any chunk
-//   length, where the wrapper raises.
+// - The panel slice fits the 227 KB up to 907 members at any chunk length.
+//   Above that (STAGED false, launched with no shared memory) nothing is
+//   staged: a thread reads its site of the problem's global panel row by
+//   row, in ascending order, skipping the rows a 0/1 mask leaves out and
+//   multiplying by the mask value otherwise, so the sums round as the
+//   staged ones do.  A warp's read of a member is one 128-byte line, reused
+//   over the T iterations out of L1 and L2.  Slots past S read the last
+//   slot's column and contribute nothing.
 #include "common.cuh"
 
 #ifndef WG_SITES_UNROLL
@@ -122,8 +128,30 @@ __device__ __forceinline__ float sites_member_sum(
   return acc;
 }
 
+// The same sum over the P rows of the problem's global panel, `ld` floats
+// apart; g0c / g1c point at this thread's site in row 0, mk is the mask row.
+// MULT as above; without it the rows whose mask is 0 are skipped (a branch
+// the whole block takes alike).
+template <bool FAST, bool MULT>
+__device__ __forceinline__ float sites_member_sum_global(
+    const float* __restrict__ g0c, const float* __restrict__ g1c,
+    long long ld, int P, float f, const float* __restrict__ mk) {
+  const float omf = 1.0f - f;
+  float acc = 0.0f;
+  for (int p = 0; p < P; ++p, g0c += ld, g1c += ld) {
+    const float m = __ldg(mk + p);
+    if (!MULT && m == 0.0f) continue;
+    const float a = *g0c;
+    const float b = *g1c;
+    float w = em_w<FAST>(a, b, 1.0f - a - b, f, omf);
+    if (MULT) w = w * m;
+    acc += w;
+  }
+  return acc;
+}
+
 // W warps a block: a tile of TS = 32 W site slots.
-template <bool FAST, int W>
+template <bool FAST, int W, bool STAGED>
 __global__ void __launch_bounds__(32 * W) sites_chunk_kernel(
     const float* __restrict__ g0p, const float* __restrict__ g1p,
     const float* __restrict__ ft_in, float* __restrict__ ft_out,
@@ -132,13 +160,6 @@ __global__ void __launch_bounds__(32 * W) sites_chunk_kernel(
     float* __restrict__ sq_part, int B, int P, int S_total, int T,
     int aligned) {
   constexpr int TS = 32 * W;
-  extern __shared__ float4 smem4[];
-  float* sg = reinterpret_cast<float*>(smem4);  // [PLANES][rows][TS]
-  const int n_words = (P + 31) >> 5;
-  unsigned* bits = reinterpret_cast<unsigned*>(sg + PLANES * P * TS);
-  int* pre = reinterpret_cast<int*>(bits + n_words);  // rows before a word
-  int* head = pre + n_words;  // {staged rows, every non-zero mask is 1}
-
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -160,113 +181,141 @@ __global__ void __launch_bounds__(32 * W) sites_chunk_kernel(
   }
 
   const float* mask_b = mask + (long long)b * P;
-  if (warp == 0) {
-    int count = 0;
-    bool ones = true;
-    for (int w = 0; w < n_words; ++w) {
-      const int p = w * 32 + lane;
-      const float mk = p < P ? __ldg(mask_b + p) : 0.0f;
-      ones = ones && (mk == 0.0f || mk == 1.0f);
-      const unsigned word = __ballot_sync(0xffffffffu, mk != 0.0f);
-      if (lane == 0) {
-        bits[w] = word;
-        pre[w] = count;
-      }
-      count += __popc(word);
-    }
-    ones = __all_sync(0xffffffffu, ones);
-    __syncwarp();
-    if (!ones) {
-      // a mask with other values: every row is staged, at its own index
-      for (int w = lane; w < n_words; w += 32) {
-        const int left = P - w * 32;
-        bits[w] = left >= 32 ? 0xffffffffu : ((1u << left) - 1u);
-        pre[w] = w * 32;
-      }
-      count = P;
-    }
-    if (lane == 0) {
-      head[0] = count;
-      head[1] = ones;
-    }
-  }
-  __syncthreads();
-  const int n_rows = head[0];
-  const bool packed = head[1] != 0;
+  int n_rows = 0;
+  bool packed = true;
+  const float* col = nullptr;
+  if constexpr (STAGED) {
+    extern __shared__ float4 smem4[];
+    float* sg = reinterpret_cast<float*>(smem4);  // [PLANES][rows][TS]
+    const int n_words = (P + 31) >> 5;
+    unsigned* bits = reinterpret_cast<unsigned*>(sg + PLANES * P * TS);
+    int* pre = reinterpret_cast<int*>(bits + n_words);  // rows before a word
+    int* head = pre + n_words;  // {staged rows, every non-zero mask is 1}
 
-  const long long panel = (long long)b * P * S_total + s0;
-  if (SITES_LAYOUT == 1 && s0 + TS <= S_total) {
-    // pairs interleave the two planes: 4-byte copies, one site each
-    const int per_plane = P * TS;
-    for (int e = tid; e < 2 * per_plane; e += TS) {
-      const int plane = e >= per_plane;
-      const int ee = e - plane * per_plane;
-      const int p = ee / TS;
-      const int c = ee % TS;
-      const unsigned word = bits[p >> 5];
-      if (!((word >> (p & 31)) & 1u)) continue;
-      const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
-      const float* src =
-          (plane ? g1p : g0p) + panel + (long long)p * S_total + c;
-      cp_async_4(sg + 2 * (i * TS + c) + plane, src);
+    if (warp == 0) {
+      int count = 0;
+      bool ones = true;
+      for (int w = 0; w < n_words; ++w) {
+        const int p = w * 32 + lane;
+        const float mk = p < P ? __ldg(mask_b + p) : 0.0f;
+        ones = ones && (mk == 0.0f || mk == 1.0f);
+        const unsigned word = __ballot_sync(0xffffffffu, mk != 0.0f);
+        if (lane == 0) {
+          bits[w] = word;
+          pre[w] = count;
+        }
+        count += __popc(word);
+      }
+      ones = __all_sync(0xffffffffu, ones);
+      __syncwarp();
+      if (!ones) {
+        // a mask with other values: every row is staged, at its own index
+        for (int w = lane; w < n_words; w += 32) {
+          const int left = P - w * 32;
+          bits[w] = left >= 32 ? 0xffffffffu : ((1u << left) - 1u);
+          pre[w] = w * 32;
+        }
+        count = P;
+      }
+      if (lane == 0) {
+        head[0] = count;
+        head[1] = ones;
+      }
     }
-    cp_async_wait_all();
-  } else if (SITES_LAYOUT != 1 && aligned && s0 + TS <= S_total) {
-    // a row of the tile is TS / 4 16-byte copies per plane, consecutive
-    // threads on consecutive chunks
-    constexpr int CPR = TS / 4;
-    const int per_plane = P * CPR;
-    for (int e = tid; e < 2 * per_plane; e += TS) {
-      const int plane = e >= per_plane;
-      const int ee = e - plane * per_plane;
-      const int p = ee / CPR;
-      const int c4 = (ee % CPR) * 4;
-      const unsigned word = bits[p >> 5];
-      if (!((word >> (p & 31)) & 1u)) continue;
-      const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
-      const float* src =
-          (plane ? g1p : g0p) + panel + (long long)p * S_total + c4;
-      cp_async_16(sg + ((plane ? n_rows : 0) + i) * TS + c4, src);
-    }
-    cp_async_wait_all();
-  } else {
-    for (int p = warp; p < P; p += W) {
-      const unsigned word = bits[p >> 5];
-      if (!((word >> (p & 31)) & 1u)) continue;
-      const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
-      for (int c = lane; c < TS; c += 32) {
-        const bool in = s0 + c < S_total;
-        const long long at = panel + (long long)p * S_total + c;
-        const float a = in ? g0p[at] : 1.0f;
-        const float g = in ? g1p[at] : 0.0f;
-        if constexpr (SITES_LAYOUT == 1) {
-          reinterpret_cast<float2*>(sg)[i * TS + c] = make_float2(a, g);
-        } else {
-          sg[i * TS + c] = a;
-          sg[(n_rows + i) * TS + c] = g;
+    __syncthreads();
+    n_rows = head[0];
+    packed = head[1] != 0;
+
+    const long long panel = (long long)b * P * S_total + s0;
+    if (SITES_LAYOUT == 1 && s0 + TS <= S_total) {
+      // pairs interleave the two planes: 4-byte copies, one site each
+      const int per_plane = P * TS;
+      for (int e = tid; e < 2 * per_plane; e += TS) {
+        const int plane = e >= per_plane;
+        const int ee = e - plane * per_plane;
+        const int p = ee / TS;
+        const int c = ee % TS;
+        const unsigned word = bits[p >> 5];
+        if (!((word >> (p & 31)) & 1u)) continue;
+        const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
+        const float* src =
+            (plane ? g1p : g0p) + panel + (long long)p * S_total + c;
+        cp_async_4(sg + 2 * (i * TS + c) + plane, src);
+      }
+      cp_async_wait_all();
+    } else if (SITES_LAYOUT != 1 && aligned && s0 + TS <= S_total) {
+      // a row of the tile is TS / 4 16-byte copies per plane, consecutive
+      // threads on consecutive chunks
+      constexpr int CPR = TS / 4;
+      const int per_plane = P * CPR;
+      for (int e = tid; e < 2 * per_plane; e += TS) {
+        const int plane = e >= per_plane;
+        const int ee = e - plane * per_plane;
+        const int p = ee / CPR;
+        const int c4 = (ee % CPR) * 4;
+        const unsigned word = bits[p >> 5];
+        if (!((word >> (p & 31)) & 1u)) continue;
+        const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
+        const float* src =
+            (plane ? g1p : g0p) + panel + (long long)p * S_total + c4;
+        cp_async_16(sg + ((plane ? n_rows : 0) + i) * TS + c4, src);
+      }
+      cp_async_wait_all();
+    } else {
+      for (int p = warp; p < P; p += W) {
+        const unsigned word = bits[p >> 5];
+        if (!((word >> (p & 31)) & 1u)) continue;
+        const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
+        for (int c = lane; c < TS; c += 32) {
+          const bool in = s0 + c < S_total;
+          const long long at = panel + (long long)p * S_total + c;
+          const float a = in ? g0p[at] : 1.0f;
+          const float g = in ? g1p[at] : 0.0f;
+          if constexpr (SITES_LAYOUT == 1) {
+            reinterpret_cast<float2*>(sg)[i * TS + c] = make_float2(a, g);
+          } else {
+            sg[i * TS + c] = a;
+            sg[(n_rows + i) * TS + c] = g;
+          }
         }
       }
     }
-  }
-  __syncthreads();
-  if constexpr (SITES_LAYOUT == 2) {
-    for (int e = tid; e < n_rows * TS; e += TS) {
-      sg[2 * n_rows * TS + e] = 1.0f - sg[e] - sg[n_rows * TS + e];
-    }
     __syncthreads();
+    if constexpr (SITES_LAYOUT == 2) {
+      for (int e = tid; e < n_rows * TS; e += TS) {
+        sg[2 * n_rows * TS + e] = 1.0f - sg[e] - sg[n_rows * TS + e];
+      }
+      __syncthreads();
+    }
+    col = sg + (SITES_LAYOUT == 1 ? 2 * tid : tid);
+  } else {
+    // every non-zero mask value 1.0?  Each warp finds out for itself.
+    for (int p = lane; p < P; p += 32) {
+      const float mk = __ldg(mask_b + p);
+      packed = packed && (mk == 0.0f || mk == 1.0f);
+    }
+    packed = __all_sync(0xffffffffu, packed);
   }
-  const float* col = sg + (SITES_LAYOUT == 1 ? 2 * tid : tid);
-
+  // unstaged: this thread's site in row 0 of the problem's global panel
+  const long long at0 =
+      (long long)b * P * S_total + (real ? s : (long long)S_total - 1);
   const float inv = __ldg(inv_counts + b);
   float f = real ? ft_in[row] : WG_EM_LO;
   const float w_site = real ? sw[row] : 0.0f;
   for (int t = 0; t < T; ++t) {
     float v = 0.0f;
     if (lim > (float)t) {  // uniform across the block
-      const float acc =
-          packed
-              ? sites_member_sum<FAST, false, TS>(col, n_rows, f, mask_b)
-              : sites_member_sum<FAST, true, TS>(col, n_rows, f, mask_b);
+      float acc;
+      if constexpr (STAGED) {
+        acc = packed
+                  ? sites_member_sum<FAST, false, TS>(col, n_rows, f, mask_b)
+                  : sites_member_sum<FAST, true, TS>(col, n_rows, f, mask_b);
+      } else {
+        acc = packed ? sites_member_sum_global<FAST, false>(
+                           g0p + at0, g1p + at0, S_total, P, f, mask_b)
+                     : sites_member_sum_global<FAST, true>(
+                           g0p + at0, g1p + at0, S_total, P, f, mask_b);
+      }
       const float f_new = em_clip(acc * inv);
       const float d = real ? f_new - f : 0.0f;
       f = f_new;
@@ -283,18 +332,24 @@ using SitesKernel = void (*)(const float*, const float*, const float*,
                              int, int, int);
 
 template <int W>
-SitesKernel sites_kernel_w(int fast_math) {
-  return fast_math ? sites_chunk_kernel<true, W> : sites_chunk_kernel<false, W>;
+SitesKernel sites_kernel_w(int fast_math, int smem_bytes) {
+  if (smem_bytes > 0) {
+    return fast_math ? sites_chunk_kernel<true, W, true>
+                     : sites_chunk_kernel<false, W, true>;
+  }
+  return fast_math ? sites_chunk_kernel<true, W, false>
+                   : sites_chunk_kernel<false, W, false>;
 }
 
 // The instantiation for `warps` warps a block (ops/sites_chunk.py::
-// SITES_WARPS), or nullptr.
-SitesKernel sites_kernel(int warps, int fast_math) {
+// SITES_WARPS), or nullptr.  smem_bytes == 0 asks for the kernel that stages
+// nothing.
+SitesKernel sites_kernel(int warps, int fast_math, int smem_bytes) {
   switch (warps) {
-    case 1: return sites_kernel_w<1>(fast_math);
-    case 2: return sites_kernel_w<2>(fast_math);
-    case 4: return sites_kernel_w<4>(fast_math);
-    case 8: return sites_kernel_w<8>(fast_math);
+    case 1: return sites_kernel_w<1>(fast_math, smem_bytes);
+    case 2: return sites_kernel_w<2>(fast_math, smem_bytes);
+    case 4: return sites_kernel_w<4>(fast_math, smem_bytes);
+    case 8: return sites_kernel_w<8>(fast_math, smem_bytes);
     default: return nullptr;
   }
 }
@@ -310,7 +365,7 @@ WG_EXPORT int wg_sites_chunk(int device, const float* g0p, const float* g1p,
                              float* sq_part, int B, int P, int S_total, int T,
                              int warps, int smem_bytes, int aligned,
                              int fast_math, void* stream) {
-  SitesKernel kern = sites_kernel(warps, fast_math);
+  SitesKernel kern = sites_kernel(warps, fast_math, smem_bytes);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
@@ -329,7 +384,7 @@ WG_EXPORT int wg_sites_chunk(int device, const float* g0p, const float* g1p,
 // negated CUDA error code.
 WG_EXPORT int wg_sites_chunk_occupancy(int device, int warps, int smem_bytes,
                                        int fast_math) {
-  SitesKernel kern = sites_kernel(warps, fast_math);
+  SitesKernel kern = sites_kernel(warps, fast_math, smem_bytes);
   if (kern == nullptr) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;

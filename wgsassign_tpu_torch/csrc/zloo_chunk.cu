@@ -17,8 +17,12 @@
 // - A block owns 32 consecutive sites and stages their [n_real, 32] tile of
 //   both member panels once (common.cuh::stage_member_tile: 16-byte
 //   cp.async where rows are 16-byte aligned).  The tile is all the shared
-//   memory the block takes, 8 n_real bytes a site whatever B and T: at most
-//   908 members, where the wrapper raises.
+//   memory the block takes, 8 n_real bytes a site whatever B and T: it fits
+//   up to 908 members.  Above that (STAGED false, launched with no shared
+//   memory) nothing is staged and a lane reads its column of the global
+//   panels row by row, in the same order (loo_chunk.cu says why that is
+//   enough); lanes past M read the last site's column and contribute
+//   nothing.
 // - A lane is a site; a warp carries a tile of JB problems through the
 //   member loop at once (common.cuh::loo_members: one GL read feeds JB
 //   weights, JB divide chains side by side), and the block's warps take the
@@ -54,11 +58,11 @@ constexpr int JB = WG_ZLOO_JB;  // ops/zloo_chunk.py::ZLOO_PROBLEM_TILE
 
 // One update of the first NB problems of a tile (lv: their left-out rows,
 // each in [0, n_real], n_real leaving nothing out).
-template <bool FAST, int NB>
+template <bool FAST, int NB, bool STAGED>
 __device__ __forceinline__ void zloo_update(
-    const float* __restrict__ sg0, const float* __restrict__ sg1, int n_real,
-    float inv, bool real, const int (&lv)[JB], float (&f)[JB],
-    float (&d)[JB]) {
+    const float* __restrict__ sg0, const float* __restrict__ sg1,
+    long long ld, int n_real, float inv, bool real, const int (&lv)[JB],
+    float (&f)[JB], float (&d)[JB]) {
   int j[NB];
   float fq[NB], acc[NB];
   int m0 = n_real, m1 = 0;
@@ -71,9 +75,9 @@ __device__ __forceinline__ void zloo_update(
     m1 = max(m1, j[q] + 1);
   }
   m1 = max(min(m1, n_real), m0);
-  loo_members<FAST, NB, false>(sg0, sg1, 0, m0, j, fq, acc);
-  loo_members<FAST, NB, true>(sg0, sg1, m0, m1, j, fq, acc);
-  loo_members<FAST, NB, false>(sg0, sg1, m1, n_real, j, fq, acc);
+  loo_members<FAST, NB, false, STAGED>(sg0, sg1, 0, m0, j, fq, acc, ld);
+  loo_members<FAST, NB, true, STAGED>(sg0, sg1, m0, m1, j, fq, acc, ld);
+  loo_members<FAST, NB, false, STAGED>(sg0, sg1, m1, n_real, j, fq, acc, ld);
 #pragma unroll
   for (int q = 0; q < NB; ++q) {
     const float f_new = em_clip(acc[q] * inv);
@@ -83,20 +87,20 @@ __device__ __forceinline__ void zloo_update(
 }
 
 // The update of a running prefix of n_run problems, 1 <= n_run <= NB.
-template <bool FAST, int NB>
+template <bool FAST, int NB, bool STAGED>
 __device__ __forceinline__ void zloo_update_prefix(
     int n_run, const float* __restrict__ sg0, const float* __restrict__ sg1,
-    int n_real, float inv, bool real, const int (&lv)[JB], float (&f)[JB],
-    float (&d)[JB]) {
+    long long ld, int n_real, float inv, bool real, const int (&lv)[JB],
+    float (&f)[JB], float (&d)[JB]) {
   if (n_run == NB) {
-    zloo_update<FAST, NB>(sg0, sg1, n_real, inv, real, lv, f, d);
+    zloo_update<FAST, NB, STAGED>(sg0, sg1, ld, n_real, inv, real, lv, f, d);
   } else if constexpr (NB > 1) {
-    zloo_update_prefix<FAST, NB - 1>(n_run, sg0, sg1, n_real, inv, real, lv,
-                                     f, d);
+    zloo_update_prefix<FAST, NB - 1, STAGED>(n_run, sg0, sg1, ld, n_real, inv,
+                                             real, lv, f, d);
   }
 }
 
-template <bool FAST>
+template <bool FAST, bool STAGED>
 __global__ void __launch_bounds__(256) zloo_chunk_kernel(
     const float* __restrict__ g0p, const float* __restrict__ g1p,
     const float* __restrict__ ft_in, float* __restrict__ ft_out,
@@ -104,10 +108,6 @@ __global__ void __launch_bounds__(256) zloo_chunk_kernel(
     const int* __restrict__ order, const float* __restrict__ limits,
     float* __restrict__ sq_part, int B, int M, int n_real, int T,
     int aligned) {
-  extern __shared__ float4 smem4[];
-  float* sg0 = reinterpret_cast<float*>(smem4);  // [n_real][32]
-  float* sg1 = sg0 + n_real * WG_TILE_SITES;     // [n_real][32]
-
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -116,11 +116,24 @@ __global__ void __launch_bounds__(256) zloo_chunk_kernel(
   const long long s = s0 + lane;
   const bool real = s < M;
 
-  stage_member_tile(g0p, g1p, sg0, sg1, n_real, M, s0, aligned, lane, warp,
-                    n_warps, real, s);
-  __syncthreads();
-  sg0 += lane;
-  sg1 += lane;
+  // this lane's column of the member tile, and the distance between rows
+  const float* sg0;
+  const float* sg1;
+  const long long ld = STAGED ? WG_TILE_SITES : M;
+  if constexpr (STAGED) {
+    extern __shared__ float4 smem4[];
+    float* t0 = reinterpret_cast<float*>(smem4);  // [n_real][32]
+    float* t1 = t0 + n_real * WG_TILE_SITES;      // [n_real][32]
+    stage_member_tile(g0p, g1p, t0, t1, n_real, M, s0, aligned, lane, warp,
+                      n_warps, real, s);
+    __syncthreads();
+    sg0 = t0 + lane;
+    sg1 = t1 + lane;
+  } else {
+    const long long col = real ? s : (long long)M - 1;
+    sg0 = g0p + col;
+    sg1 = g1p + col;
+  }
 
   const float inv = 1.0f / ((float)n_real - 1.0f);
   const int n_tiles = (B + JB - 1) / JB;
@@ -149,8 +162,8 @@ __global__ void __launch_bounds__(256) zloo_chunk_kernel(
 #pragma unroll
       for (int q = 0; q < JB; ++q) d[q] = 0.0f;
       if (n_run > 0) {
-        zloo_update_prefix<FAST, JB>(n_run, sg0, sg1, n_real, inv, real, lv,
-                                     f, d);
+        zloo_update_prefix<FAST, JB, STAGED>(n_run, sg0, sg1, ld, n_real, inv,
+                                             real, lv, f, d);
       }
 #pragma unroll
       for (int q = 0; q < JB; ++q) {
@@ -173,8 +186,14 @@ using ZlooKernel = void (*)(const float*, const float*, const float*, float*,
                             const float*, const int*, const int*,
                             const float*, float*, int, int, int, int, int);
 
-ZlooKernel zloo_kernel(int fast_math) {
-  return fast_math ? zloo_chunk_kernel<true> : zloo_chunk_kernel<false>;
+// smem_bytes == 0 asks for the kernel that stages nothing.
+ZlooKernel zloo_kernel(int fast_math, int smem_bytes) {
+  if (smem_bytes > 0) {
+    return fast_math ? zloo_chunk_kernel<true, true>
+                     : zloo_chunk_kernel<false, true>;
+  }
+  return fast_math ? zloo_chunk_kernel<true, false>
+                   : zloo_chunk_kernel<false, false>;
 }
 
 }  // namespace
@@ -189,7 +208,7 @@ WG_EXPORT int wg_zloo_chunk(int device, const float* g0p, const float* g1p,
                             int fast_math, void* stream) {
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  ZlooKernel kern = zloo_kernel(fast_math);
+  ZlooKernel kern = zloo_kernel(fast_math, smem_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -206,7 +225,7 @@ WG_EXPORT int wg_zloo_chunk_occupancy(int device, int warps, int smem_bytes,
                                       int fast_math) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
-  ZlooKernel kern = zloo_kernel(fast_math);
+  ZlooKernel kern = zloo_kernel(fast_math, smem_bytes);
   err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return -(int)err;

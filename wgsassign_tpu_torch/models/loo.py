@@ -19,12 +19,12 @@ reproduced exactly, batched:
 Everything stays on the device: member panels are gathers of the cohort,
 and the full-data AF panel is handed over from the reference-AF step.
 
-A population above the ``loo_chunk`` kernel's member bound
-(:func:`max_loo_members`) runs the plain
-:func:`wgsassign_tpu_torch.ops.emmaf.em_maf_loo_group` on the same device,
-with a logged warning; so does every population under ``--no_pallas``.
-``LooResult.engines`` says which ran.  The rule is taken from the shape
-before any launch: a kernel that fails to build, load or launch raises.
+Under ``--no_pallas`` every population runs the plain
+:func:`wgsassign_tpu_torch.ops.emmaf.em_maf_loo_group` on the same device
+instead; ``LooResult.engines`` says which ran.  Nothing else leaves the
+chunked EM: the ``loo_chunk`` kernel takes a population of any size (one
+whose member tile does not fit in shared memory is read from global
+memory), and a kernel that fails to build, load or launch raises.
 
 With several ranks each rank runs the EMs and the per-site likelihoods on its
 window of the site axis; the convergence partials and the float64
@@ -63,8 +63,8 @@ from wgsassign_tpu_torch.ops.loglik import (
     assign_loglik_selected_partitioned_f64,
     check_loglik_inputs,
 )
-from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk, max_loo_members
-from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime, log
+from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
+from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
 
 
 @dataclass
@@ -74,8 +74,9 @@ class LooResult:
     iters: np.ndarray      # int32 [N] per-individual LOO EM convergence iteration
     converged: np.ndarray  # bool [N]
     # per population (order of ``popmap.pops``), what ran its LOO EM:
-    # "loo_chunk" (the chunked EM), "plain" (the plain op), or "restart
-    # file" (a finished population loaded from its --em_checkpoint file)
+    # "loo_chunk" (the chunked EM), "plain" (the plain op, under
+    # --no_pallas), or "restart file" (a finished population loaded from its
+    # --em_checkpoint file)
     engines: tuple = ()
 
 
@@ -199,7 +200,7 @@ def leave_one_out(
                 rt, cohort, members_d, m_real, max_iter, tol,
                 chunk_ckpt_path=(f"{checkpoint_path}.pop{j}.npz"
                                  if checkpoint_path else None),
-                chunk_op=chunk_op, pop=pop,
+                chunk_op=chunk_op,
             )
             if done_path:
                 _save_pop_done(done_path, cohort, f_p, it_p, conv_p)
@@ -280,26 +281,14 @@ def _mini_bank(f_p, af_t, j, min_val):
 
 
 def _loo_group_em(rt, cohort, members_d, m_real, max_iter, tol,
-                  chunk_ckpt_path=None, chunk_op=loo_chunk, pop=""):
+                  chunk_ckpt_path=None, chunk_op=loo_chunk):
     """One population's batched LOO EM.  Returns ``(f [n_p, M] on the
-    device, iters, converged, engine)``.
-
-    The chunked EM (the ``loo_chunk`` kernel on a GPU) up to the kernel's
-    member bound; above it, and under ``--no_pallas``, the plain
-    :func:`em_maf_loo_group` on the same device.  The choice is made here
-    from ``n_p`` alone, before any launch: the kernel's wrapper raises when
-    called above its bound, and nothing catches a kernel error."""
+    device, iters, converged, engine)``: the chunked EM (the ``loo_chunk``
+    kernel on a GPU), or under ``--no_pallas`` the plain
+    :func:`em_maf_loo_group` on the same device."""
     g0p, g1p = _member_panels(cohort.g0, cohort.g1, members_d)
-    n_p = g0p.shape[0]
     reduce = rt.all_reduce_sum
-    chunked = rt.chunked_em()
-    if chunked and n_p > max_loo_members():
-        log.warning(
-            "LOO EM: population %s of %d members exceeds the loo_chunk "
-            "kernel's bound of %d members; it runs the plain op "
-            "em_maf_loo_group on %s", pop, n_p, max_loo_members(), rt.device)
-        chunked = False
-    if not chunked:
+    if not rt.chunked_em():
         f, iters, conv = em_maf_loo_group(
             g0p, g1p, cohort.site_weight, m_real, max_iter, tol,
             reduce=reduce)

@@ -22,10 +22,9 @@ because ``wgsassign_tpu.models`` imports jax.  Reference mode runs its
 per-individual EMs in one of two structures, chosen once per run by the
 kept fraction ``fill`` exactly as the JAX package chooses on one device:
 loo-structured (``zloo_chunk`` kernel, full site axis) when ``fill >= 0.5``,
-gathered (``sites_chunk`` kernel, kept sites only) otherwise.  Above a
-kernel's member bound, and under ``--no_pallas``, the plain ops of
-``ops/emmaf.py`` run in the same structure; ``ZScoreResult.engine`` says
-which ran.
+gathered (``sites_chunk`` kernel, kept sites only) otherwise.  Under
+``--no_pallas`` the plain ops of ``ops/emmaf.py`` run in the same structure
+instead; ``ZScoreResult.engine`` says which ran.
 
 With several ranks every rank builds the host tables whole (they are global
 per individual: the allele-depth file is read in full and the GL columns are
@@ -64,13 +63,12 @@ from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_subset_fused,
     em_maf_sites_batch_fused,
 )
-from wgsassign_tpu_torch.ops.sites_chunk import max_sites_members, sites_chunk
-from wgsassign_tpu_torch.ops.zloo_chunk import max_zloo_members, zloo_chunk
+from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk
+from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk
 from wgsassign_tpu_torch.ops.zscore_ops import zscore_sums_batch_compact
 from wgsassign_tpu_torch.parallel.runtime import (
     PAD_AF,
     Runtime,
-    log,
     synchronize,
 )
 
@@ -248,8 +246,7 @@ class ZScoreResult:
     fill: float = 0.0       # kept fraction over the individual range
     structure: str = ""     # "loo-structured", "gathered" or "assignment"
     # reference mode: what ran the EMs -- "zloo_chunk" or "sites_chunk" (the
-    # chunked EM), "plain" (the plain op), or both joined by "+" when only
-    # some populations are above the kernel's member bound
+    # chunked EM), or "plain" (the plain op, under --no_pallas)
     engine: str = ""
 
 
@@ -464,13 +461,15 @@ def _run_blocks(
     cohort, beagle, ad, ind_start, ind_end, af_block_fn, per_ind_bytes_extra,
     n_threshold, single_read_threshold, verbose, block_bytes=None,
     error_rate=SEQ_ERROR_RATE, timer=None,
+    sums_op=zscore_sums_batch_compact,
 ):
     """Shared batched driver.  ``af_block_fn(block, fill)`` returns a
     device ``[B, S]`` AF panel for the block's kept sites and the ``[B]``
     EM iteration counts behind it.  With a ``timer``
     (:class:`wgsassign_tpu_torch.obs.profiling.RunTimer`) the host tables, the
     AF groups and the z-sums blocks are timed as the phases
-    ``zscore_tables``, ``zscore_af`` and ``zscore_sums``."""
+    ``zscore_tables``, ``zscore_af`` and ``zscore_sums``.  ``sums_op``
+    computes a block's three z sums."""
     dev = cohort.runtime.device
 
     def phase(name):
@@ -531,7 +530,7 @@ def _run_blocks(
                 g0k_d, g1k_d, w_d = _gather_block_inputs(
                     cohort, block.keep, block.inds, block.s_real,
                 )
-                sums = zscore_sums_batch_compact(
+                sums = sums_op(
                     g0k_d, g1k_d, a_dev, w_d,
                     _put(block.depth, dev), _put(block.rows_by_depth, dev),
                     _put(block.like_tab, dev), _put(block.fact_tab, dev),
@@ -592,20 +591,6 @@ def reference_z_scores(
     n = cohort.n_inds
     ind_end = n if ind_end is None else ind_end
 
-    decided = {}
-
-    def use_kernel(what, kernel, rows, bound):
-        # the rule on the shape, taken before any launch: above the
-        # kernel's member bound the plain op runs, with one warning a run
-        if what not in decided:
-            decided[what] = chunked and rows <= bound
-            if chunked and rows > bound:
-                log.warning(
-                    "reference z-score EM: %s of %d members exceeds the %s "
-                    "kernel's bound of %d members; it runs the plain op on "
-                    "%s", what, rows, kernel, bound, dev)
-        return decided[what]
-
     members_of = {}
     for i in range(ind_start, ind_end):
         members = popmap.members_of(popmap.pop_labels[i])
@@ -645,8 +630,7 @@ def reference_z_scores(
                 block.keep[slots], block.weight[slots], cohort.m_pad, dev
             )
             s_real_g = np.maximum(block.s_glob[slots], 1.0).astype(F32)
-            if use_kernel(f"population {lab}", "zloo_chunk", n_p,
-                          max_zloo_members()):
+            if chunked:
                 engines.add("zloo_chunk")
                 f, it, _ = em_maf_loo_subset_fused(
                     g0p, g1p, leave, w_full, s_real_g, max_iter, tol,
@@ -680,8 +664,7 @@ def reference_z_scores(
         g0p, g1p = _gather_member_panels(cohort.g0, cohort.g1, block.keep,
                                          mem)
         s_real_g = np.maximum(block.s_glob, 1.0)
-        if use_kernel("a member panel", "sites_chunk", p_pad,
-                      max_sites_members()):
+        if chunked:
             engines.add("sites_chunk")
             f, it, _ = em_maf_sites_batch_fused(
                 g0p, g1p, mem_mask, block.weight, s_real_g, max_iter, tol,
@@ -743,10 +726,14 @@ def assignment_z_scores(
     block_bytes: Optional[int] = None,
     error_rate: float = SEQ_ERROR_RATE,
     timer=None,
+    sums_op=zscore_sums_batch_compact,
 ) -> ZScoreResult:
     """Assignment mode: AF is the saved panel's column for the individual's
     *assigned* population, sliced at the kept sites (WGSassign.py:425-443).
-    ``timer`` as in :func:`_run_blocks`."""
+    ``timer`` as in :func:`_run_blocks`.  ``sums_op`` is the z-sums
+    function: :func:`zscore_sums_batch_compact`, or that with
+    ``sum_dtype=torch.float64`` where a check needs the sums free of float32
+    rounding."""
     if cohort is None:
         cohort = to_device(beagle, runtime)
     dev = cohort.runtime.device
@@ -791,7 +778,7 @@ def assignment_z_scores(
         # keep-index upload + AF output + gather index temporaries
         lambda s, fill: 16 * s,
         n_threshold, single_read_threshold, verbose, block_bytes,
-        error_rate, timer,
+        error_rate, timer, sums_op,
     )
     out.structure = "assignment"
     return out

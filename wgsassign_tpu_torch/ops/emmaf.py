@@ -11,8 +11,7 @@ count matches an independent run.
 
 These are the plain versions, iterating one update per loop step on the
 host.  The main path runs the chunked EMs of :mod:`.fused_em` instead,
-which take T iterations per kernel launch; these run under ``--no_pallas``
-and for a population above a kernel's member bound.
+which take T iterations per kernel launch; these run under ``--no_pallas``.
 
 With several ranks each rank holds a window of the site axis; ``reduce``
 (``Runtime.all_reduce_sum``) sums each iteration's squared-update sums over

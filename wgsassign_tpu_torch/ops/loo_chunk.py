@@ -23,9 +23,10 @@ from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 _F32 = torch.float32
 
 # The kernel's tile (csrc/loo_chunk.cu): a block stages the [n_real, 32] tile
-# of both GL panels in shared memory; a warp carries LOO_PROBLEM_TILE
-# problems through the member loop at once, and the block's warps take the
-# problem tiles round-robin.
+# of both GL panels in shared memory (a population too large for that is
+# read from the global panels instead, in the same order); a warp carries
+# LOO_PROBLEM_TILE problems through the member loop at once, and the block's
+# warps take the problem tiles round-robin.
 LOO_SITES = 32
 LOO_PROBLEM_TILE = 4
 LOO_MAX_WARPS = 8
@@ -36,8 +37,9 @@ def _smem_bytes(n_real: int) -> int:
 
 
 def max_loo_members() -> int:
-    """Largest population whose [n_real, 32] member tile fits in shared
-    memory: 908, whatever the chunk length."""
+    """Largest population whose [n_real, 32] member tile is staged in
+    shared memory: 908, whatever the chunk length.  A larger one runs the
+    kernel's unstaged form (:func:`loo_chunk_geometry`)."""
     return _kernels.SMEM_LIMIT // (4 * 2 * LOO_SITES)
 
 
@@ -48,15 +50,13 @@ def loo_chunk_geometry(n_real: int) -> tuple:
     the best product of two estimates: the share of warp rounds that carry
     a tile, and the share of 32 resident warps per SM that the shared
     memory allows; the fewest warps on a tie (9 tiles: 3 warps, three rounds
-    each).  Raises ValueError above the member bound."""
+    each).  Above :func:`max_loo_members` the tile does not fit: the block
+    takes no shared memory (``smem_bytes == 0`` selects the kernel that
+    reads the members from the global panels) and LOO_MAX_WARPS warps, since
+    nothing but registers bounds the resident warps then."""
+    if n_real > max_loo_members():
+        return LOO_MAX_WARPS, 0
     smem = _smem_bytes(n_real)
-    if smem > _kernels.SMEM_LIMIT:
-        raise ValueError(
-            f"loo_chunk: a population of {n_real} members exceeds the "
-            f"kernel's bound of {max_loo_members()} members (the member tile "
-            f"of {LOO_SITES} sites must fit in {_kernels.SMEM_LIMIT} bytes "
-            "of shared memory)"
-        )
     tiles = -(-n_real // LOO_PROBLEM_TILE)
     # resident blocks per SM: 32 at most, 1 KB of shared memory reserved each
     blocks = min(32, max(1, _kernels.SMEM_LIMIT // (smem + 1024)))

@@ -26,8 +26,10 @@ _F32 = torch.float32
 # The kernel's tile (csrc/sites_chunk.cu): a block is one problem and
 # 32 * warps site slots, one thread a site, and stages its [P, tile] slice of
 # the problem's panels in shared memory as SITES_PLANES planes, beside a
-# bitmap of the member mask (8 bytes per 32 members and 8 more).  SITES_WARPS
-# are the block widths the kernel is built for, widest first.
+# bitmap of the member mask (8 bytes per 32 members and 8 more); a panel of
+# too many members for that is read from global memory instead, in the same
+# order.  SITES_WARPS are the block widths the kernel is built for, widest
+# first.
 SITES_WARPS = (4, 2, 1)
 SITES_PLANES = 2
 
@@ -38,9 +40,10 @@ def _smem_bytes(p: int, warps: int) -> int:
 
 
 def max_sites_members() -> int:
-    """Largest member panel (P rows) whose slice of the narrowest tile fits
-    in shared memory: 907, whatever the chunk length and the number of
-    problems."""
+    """Largest member panel (P rows) whose slice of the narrowest tile is
+    staged in shared memory: 907, whatever the chunk length and the number
+    of problems.  A larger one runs the kernel's unstaged form
+    (:func:`sites_chunk_geometry`)."""
     warps = SITES_WARPS[-1]
     p = _kernels.SMEM_LIMIT // (4 * SITES_PLANES * 32 * warps)
     while _smem_bytes(p, warps) > _kernels.SMEM_LIMIT:
@@ -52,20 +55,17 @@ def sites_chunk_geometry(p: int) -> tuple:
     """``(warps, smem_bytes)`` of a block: the width with the most warps
     resident on an SM (at most 32 blocks and 64 warps; 1 KB of shared memory
     reserved a block), the widest on a tie, since wider tiles make fewer
-    blocks to launch.  Raises ValueError above the member bound."""
+    blocks to launch.  Above :func:`max_sites_members` no width fits: the
+    block takes no shared memory (``smem_bytes == 0`` selects the kernel that
+    reads the members from the global panels) at the widest tile."""
     def resident(w):
         blocks = max(1, _kernels.SMEM_LIMIT // (_smem_bytes(p, w) + 1024))
         return min(64, w * min(32, blocks))
 
+    if p > max_sites_members():
+        return SITES_WARPS[0], 0
     fits = [w for w in SITES_WARPS
             if _smem_bytes(p, w) <= _kernels.SMEM_LIMIT]
-    if not fits:
-        raise ValueError(
-            f"sites_chunk: a member panel of {p} rows exceeds the kernel's "
-            f"bound of {max_sites_members()} members (the panel slice of "
-            f"{32 * SITES_WARPS[-1]} sites must fit in {_kernels.SMEM_LIMIT} "
-            "bytes of shared memory)"
-        )
     warps = max(fits, key=lambda w: (resident(w), w))
     return warps, _smem_bytes(p, warps)
 

@@ -25,9 +25,11 @@ from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 _F32 = torch.float32
 
 # The kernel's tile (csrc/zloo_chunk.cu), the one of ``loo_chunk``: a block
-# stages the [n_real, 32] tile of both GL panels in shared memory; a warp
-# carries ZLOO_PROBLEM_TILE problems through the member loop at once, and the
-# block's warps take the problem tiles round-robin.
+# stages the [n_real, 32] tile of both GL panels in shared memory (a
+# population too large for that is read from the global panels instead, in
+# the same order); a warp carries ZLOO_PROBLEM_TILE problems through the
+# member loop at once, and the block's warps take the problem tiles
+# round-robin.
 ZLOO_SITES = 32
 ZLOO_PROBLEM_TILE = 4
 ZLOO_MAX_WARPS = 8
@@ -38,8 +40,10 @@ def _smem_bytes(n_real: int) -> int:
 
 
 def max_zloo_members() -> int:
-    """Largest population whose [n_real, 32] member tile fits in shared
-    memory: 908, whatever the chunk length and the number of problems."""
+    """Largest population whose [n_real, 32] member tile is staged in
+    shared memory: 908, whatever the chunk length and the number of
+    problems.  A larger one runs the kernel's unstaged form
+    (:func:`zloo_chunk_geometry`)."""
     return _kernels.SMEM_LIMIT // (4 * 2 * ZLOO_SITES)
 
 
@@ -51,15 +55,12 @@ def zloo_chunk_geometry(n_real: int, b: int) -> tuple:
     share of the warps' time that carries a problem (the block lasts as long
     as its most loaded warp), and the share of 32 resident warps per SM that
     the shared memory allows; the fewest warps on a tie (13 problems: 3
-    warps with 5, 4 and 4).  Raises ValueError above the member bound."""
-    smem = _smem_bytes(n_real)
-    if smem > _kernels.SMEM_LIMIT:
-        raise ValueError(
-            f"zloo_chunk: a population of {n_real} members exceeds the "
-            f"kernel's bound of {max_zloo_members()} members (the member "
-            f"tile of {ZLOO_SITES} sites must fit in {_kernels.SMEM_LIMIT} "
-            "bytes of shared memory)"
-        )
+    warps with 5, 4 and 4).  Above :func:`max_zloo_members` the tile does
+    not fit: the block takes no shared memory (``smem_bytes == 0`` selects
+    the kernel that reads the members from the global panels), which leaves
+    the registers to bound the resident warps."""
+    staged = n_real <= max_zloo_members()
+    smem = _smem_bytes(n_real) if staged else 0
     sizes = [min(ZLOO_PROBLEM_TILE, b - lo)
              for lo in range(0, b, ZLOO_PROBLEM_TILE)]
     # resident blocks per SM: 32 at most, 1 KB of shared memory reserved each

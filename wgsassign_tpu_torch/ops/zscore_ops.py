@@ -24,7 +24,8 @@ import torch
 
 
 def zscore_sums_batch_compact(g0k, g1k, a, weight, site_depth,
-                              rows_by_depth, like_tab, fact_tab):
+                              rows_by_depth, like_tab, fact_tab,
+                              sum_dtype=None):
     """Masked z sums for a block of B individuals.
 
     Args:
@@ -36,7 +37,12 @@ def zscore_sums_batch_compact(g0k, g1k, a, weight, site_depth,
       like_tab: float32 ``[B, R, 3]`` mean GL triple per combo.
       fact_tab: float32 ``[B, R, 3]`` read probability per combo.
 
-    Returns ``(w_obs, w_mu, w_var)``, three float32 ``[B]`` tensors.
+      sum_dtype: dtype the per-site float32 terms are summed in; None is
+        float32, as the JAX op sums them.  float64 is for checks that
+        separate the rounding of these sums from other differences.
+
+    Returns ``(w_obs, w_mu, w_var)``, three ``[B]`` tensors (float32, or
+    ``sum_dtype``).
     """
     b, c, _ = rows_by_depth.shape
     p0 = (1.0 - a) * (1.0 - a)
@@ -63,6 +69,6 @@ def zscore_sums_batch_compact(g0k, g1k, a, weight, site_depth,
         dv = w_mu_site - lg
         w_var_site = w_var_site + torch.where(valid, dv * dv * wt, zero)
 
-    return (torch.sum(w_obs_site * weight, dim=1),
-            torch.sum(w_mu_site * weight, dim=1),
-            torch.sum(w_var_site * weight, dim=1))
+    return (torch.sum(w_obs_site * weight, dim=1, dtype=sum_dtype),
+            torch.sum(w_mu_site * weight, dim=1, dtype=sum_dtype),
+            torch.sum(w_var_site * weight, dim=1, dtype=sum_dtype))

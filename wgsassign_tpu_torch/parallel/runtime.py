@@ -163,12 +163,10 @@ def distributed_env() -> Optional[tuple]:
             int(os.environ["WGSA_PROCESS_ID"]))
 
 
-def _collective_timeout() -> datetime.timedelta:
-    """Time limit of every collective, so that a rank whose peer died fails
-    instead of waiting for ever: ``WGSA_COLLECTIVE_TIMEOUT`` seconds
-    (default 1800)."""
-    return datetime.timedelta(
-        seconds=float(os.environ.get("WGSA_COLLECTIVE_TIMEOUT", "1800")))
+# Time limit of every collective, so that a rank whose peer died fails
+# instead of waiting for ever.  The slowest rank's parse of a large file
+# lies inside the first all-reduce, hence half an hour.
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=1800)
 
 
 def maybe_initialize_distributed(device, ranks: Optional[tuple] = None) -> tuple:
@@ -205,7 +203,7 @@ def maybe_initialize_distributed(device, ranks: Optional[tuple] = None) -> tuple
         torch.cuda.set_device(device)
     dist.init_process_group(
         backend="gloo", init_method=f"tcp://{address}", world_size=world,
-        rank=rank, timeout=_collective_timeout())
+        rank=rank, timeout=COLLECTIVE_TIMEOUT)
     place = (socket.gethostname(),
              device.index if device.type == "cuda" else None)
     places = [None] * world
@@ -214,7 +212,7 @@ def maybe_initialize_distributed(device, ranks: Optional[tuple] = None) -> tuple
                 and len(set(places)) == world)
     if own_card and dist.is_nccl_available():
         backend = "nccl"
-        group = dist.new_group(backend="nccl", timeout=_collective_timeout())
+        group = dist.new_group(backend="nccl", timeout=COLLECTIVE_TIMEOUT)
     else:
         backend, group = "gloo", None
     log.info("rank %d of %d on %s: collectives over %s (%s)", rank, world,
