@@ -6,9 +6,10 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. environment: the card's name and power limit (nvidia-smi);
-2. build: the native Beagle reader (g++, must load: the parse times are
-   its), then csrc/*.cu with nvcc for sm_90a (one nvcc per source, all
-   started together), load, run the probe;
+2. build, the cold start: (a) the native Beagle reader (g++, must load:
+   the parse times are its), with the seconds g++ took; (b) the first
+   tensor on the card (the CUDA context), csrc/*.cu with nvcc for sm_90a
+   (one nvcc per source, all started together), then load and the probe;
 3. every kernel against its plain PyTorch twin on the card, at the shapes
    its path gives it, with both times, the kernel's bound on this card and
    its share of it and the occupancy the CUDA runtime reports (and, for
@@ -58,13 +59,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``leave_one_out`` on the card, which must launch ``loo_chunk`` for the
    big population, warn of nothing and agree with the CPU run.  A failed
    rank, a rank that outlasts its time limit or a mismatch fails the
-   script.
+   script;
+11. the entry points of ``wgsassign_tpu_torch/graft_entry.py``: (a)
+   ``entry()`` on the card against ``entry("cpu")`` at the hooks' shape
+   (1,024 x 64 x 4): ``f_new`` bit for bit, log-likelihoods to rtol 1e-5 /
+   atol 2e-3, exactly one ``em_chunk`` launch; (b) the same
+   ``ForwardStep`` at phase 4's width (1,000,000 x 180 x 5, GLs drawn on the
+   card from seed 0) with the kernel against its twin, both on the card,
+   bit for bit, with CUDA-event times of the step and of ``em_chunk`` at
+   T=1 beside ``em_chunk``'s bound at T=1; (c) ``dryrun_multichip(max(2,
+   device_count))``: with one card both ranks share ``cuda:0`` over gloo,
+   with several each rank has its own over NCCL; the phase prints which.
 
 ``python3 chip_smoke.py --rank-worker SPEC.json`` is one such rank (phase 10
 starts it; it reads its rank from the three variables).
 
 The line before the last is a JSON object with each kernel's launches on
-its path (phase 4, 6a or 6b), its largest difference from the twin, both
+its path (phase 4, 6a or 6b, each counted from 0 over that phase's run),
+its launches in phase 11a and in 11c's rank 0 apart, under
+``phase11_launches``, its largest difference from the twin, both
 times in phase 3, its bound and, where one PyTorch call computes the same
 function, that call's time; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -155,6 +168,14 @@ def bound(ops, nbytes):
     if ops_ms >= bytes_ms:
         return {"bound_ms": ops_ms, "bound_by": "operations"}
     return {"bound_ms": bytes_ms, "bound_by": "bytes"}
+
+
+def em_chunk_bound(m, n, k, T, weights):
+    """``em_chunk``'s bound for ``weights`` EM weights on ``[M, N]`` GL
+    planes, ``[K, M]`` AF panels in and out, ``sq [T, K]``, the ``[N]``
+    population index and three ``[K]`` vectors."""
+    return bound(weights * OPS_PER_WEIGHT,
+                 4 * (2 * m * n + 2 * k * m + T * k + 3 * k + n))
 
 
 def updates(limits, T):
@@ -263,8 +284,7 @@ def kernels_vs_twins(dev, results):
     weights = m * float((sizes * lim.clamp(0, T)).sum())
     geo = em_chunk_geometry(n, k, T)
     results["em_chunk"].update(
-        **bound(weights * OPS_PER_WEIGHT,
-                4 * (2 * m * n + 2 * k * m + T * k + 3 * k + n)),
+        **em_chunk_bound(m, n, k, T, weights),
         occupancy="{}x{}warps".format(
             _kernels.occupancy("em_chunk", dev, geo[0], geo[3]),
             geo[0] * EM_LANES // 32),
@@ -1311,6 +1331,94 @@ def big_population(dev):
           **kernels)
 
 
+def entry_points(dev):
+    """Phase 11: the entry points of ``graft_entry.py`` on the card.
+    Returns the launches of each of their paths, each counted from 0:
+    ``{"11a": {...}, "11c_rank0": {...}}``."""
+    import torch
+
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.graft_entry import (
+        ForwardStep,
+        dryrun_multichip,
+        entry,
+    )
+    from wgsassign_tpu_torch.ops.em_chunk import em_chunk, em_chunk_twin
+
+    t0 = time.perf_counter()
+    module, args = entry()
+    _kernels.launches.clear()
+    f_new, ll = module(*args)
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launches)
+    if counts != {"em_chunk": 1}:
+        raise AssertionError(f"11a: entry() launched {counts}, wanted "
+                             "em_chunk once")
+    cpu_module, cpu_args = entry("cpu")
+    f_cpu, ll_cpu = cpu_module(*cpu_args)
+    if not torch.equal(f_new.cpu(), f_cpu):
+        raise AssertionError("11a: f_new differs from the CPU step by "
+                             f"{float((f_new.cpu() - f_cpu).abs().max())}")
+    torch.testing.assert_close(ll.cpu(), ll_cpu, rtol=LL_RTOL, atol=LL_ATOL)
+    phase("11a entry", t0, device=str(args[0].device),
+          shape="M=1024,N=64,K=4", em_chunk_launches=counts["em_chunk"],
+          f_new="bit_equal_to_cpu",
+          ll_max_abs_err=float((ll.cpu() - ll_cpu).abs().max()))
+
+    t0 = time.perf_counter()
+    m, n, k = M_MAIN, N_MAIN, K_MAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g0, g1 = random_gls(m, n, gen, dev)
+    pop = (torch.arange(n, device=dev) % k).to(torch.int32)
+    membership = torch.nn.functional.one_hot(pop.long(), k).float()
+    f0 = torch.full((m, k), 0.25, device=dev)
+    step_args = (g0, g1, membership, pop, f0, torch.ones(m, device=dev))
+    kernel_step, twin_step = ForwardStep(), ForwardStep(em_chunk_twin)
+    f_k, ll_k = kernel_step(*step_args)
+    f_t, ll_t = twin_step(*step_args)
+    if not torch.equal(f_k, f_t) or not torch.equal(ll_k, ll_t):
+        raise AssertionError(
+            f"11b: kernel step differs from the twin step: f_new by "
+            f"{float((f_k - f_t).abs().max())}, ll by "
+            f"{float((ll_k - ll_t).abs().max())}")
+    if not torch.isfinite(ll_k).all():
+        raise AssertionError("11b: non-finite log-likelihoods")
+    ft = f0.t().contiguous()
+    inv = 1.0 / membership.sum(dim=0)
+    lim = torch.ones(k, device=dev)
+    em_ms = time_ms(lambda: em_chunk(g0, g1, ft, pop, inv, lim, 1, False), 10)
+    step_ms = time_ms(lambda: kernel_step(*step_args), 5)
+    plain_step_ms = time_ms(lambda: twin_step(*step_args), 2)
+    em_bound = em_chunk_bound(m, n, k, 1, float(m * n))
+    phase("11b forward-step", t0, shape=f"M={m},N={n},K={k}",
+          f_new_and_ll="bit_equal_kernel_vs_twin", step_ms=f"{step_ms:.4f}",
+          plain_step_ms=f"{plain_step_ms:.4f}", em_chunk_t1_ms=f"{em_ms:.4f}",
+          bound_ms=f"{em_bound['bound_ms']:.4f}",
+          bound_by=em_bound["bound_by"] + "(em_chunk,T=1)",
+          em_chunk_share_of_bound=f"{em_bound['bound_ms'] / em_ms:.4f}")
+    del g0, g1, step_args, f_k, f_t, ft
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = max(RANKS, cards)
+    got = dryrun_multichip(world)
+    want_backend = "nccl" if cards >= RANKS else "gloo"
+    if str(got["backend"]) != want_backend:
+        raise AssertionError(f"11c: backend {got['backend']}, wanted "
+                             f"{want_backend}")
+    rank0 = {key[len("launches_"):]: int(v) for key, v in got.items()
+             if key.startswith("launches_")}
+    for name in ("probe", "em_chunk", "loo_chunk", "zloo_chunk"):
+        if not rank0.get(name):
+            raise AssertionError(f"11c: rank 0 never launched {name}")
+    phase("11c dryrun-multichip", t0, ranks=world, backend=want_backend,
+          devices=",".join(got["devices"].tolist()),
+          iters=",".join(map(str, got["iters"].tolist())),
+          rank0_launches=json.dumps(rank0, sort_keys=True))
+    return {"11a": counts, "11c_rank0": rank0}
+
+
 def main():
     import torch
     import torch.distributed
@@ -1325,7 +1433,7 @@ def main():
     from wgsassign_tpu_torch import _kernels  # fails outside the repository
 
     dev = torch.device("cuda:0")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1340,16 +1448,24 @@ def main():
     from wgsassign_tpu_torch import _native
 
     t0 = time.perf_counter()
+    _, gxx_s = _native.build()
     if not _native.native_available():
         raise AssertionError("the native Beagle reader did not build or load "
                              "(g++ and zlib are needed on this host)")
     phase("2a native-reader", t0, loaded=True,
-          path=os.path.relpath(_native.library_path(), ROOT))
+          gxx_s=f"{gxx_s:.3f}" if gxx_s else "0.000 (already built)",
+          path=_native.library_path())
     t0 = time.perf_counter()
+    torch.ones(1, device=dev).sum().item()
+    context_s = time.perf_counter() - t0
     _, build_s = _kernels.build()
+    t1 = time.perf_counter()
     _kernels.library()
     _kernels.probe(dev)
-    phase("2b build", t0, nvcc_s=f"{build_s:.3f}")
+    phase("2b build", t0, context_s=f"{context_s:.3f}",
+          nvcc_s=f"{build_s:.3f}" if build_s else "0.000 (already built)",
+          load_probe_s=f"{time.perf_counter() - t1:.3f}",
+          path=_kernels.library_path())
 
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "library_ms": None}
@@ -1388,17 +1504,26 @@ def main():
     ranks_zscore()
     torch.cuda.empty_cache()
     big_population(dev)
+    torch.cuda.empty_cache()
+    hooks = entry_points(dev)
+    for name, r in results.items():
+        r["phase11_launches"] = {path: counts.get(name, 0)
+                                 for path, counts in hooks.items()}
 
+    print(f"[chip_smoke] phases 1-11 in {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     for n, r in results.items():
         print(f"[kernel {n}] launches={r['launches']} on the path of phase "
               f"{KERNELS[n][2]}, ms={r['ms']:.4f}, bound_ms="
               f"{r['bound_ms']:.4f} ({r['bound_by']}), launches x (ms - "
-              f"bound_ms)={r['launches'] * (r['ms'] - r['bound_ms']):.3f}",
+              f"bound_ms)={r['launches'] * (r['ms'] - r['bound_ms']):.3f}; "
+              f"phase 11 {json.dumps(r['phase11_launches'], sort_keys=True)}",
               flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+                           "bound_ms", "bound_by", "library_ms",
+                           "phase11_launches")}
         for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -602,3 +602,61 @@ def test_no_pallas_runs_no_kernel_on_the_card(cuda):
     np.testing.assert_array_equal(plain[1].iters, fused[1].iters)
     np.testing.assert_allclose(plain[0].af, fused[0].af, rtol=0, atol=1e-5)
     np.testing.assert_allclose(plain[1].ll, fused[1].ll, rtol=1e-5, atol=2e-3)
+
+
+def test_kernels_build_and_probe_under_a_compile_cache(cuda, tmp_path):
+    """``WGSA_COMPILE_CACHE=<dir>``: a fresh process builds the kernel
+    library under ``<dir>`` and its probe runs."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import torch\n"
+        "from wgsassign_tpu_torch import _kernels\n"
+        "_kernels.probe(torch.device('cuda:0'))\n"
+        "print(_kernels.library_path())\n"
+    )
+    env = dict(os.environ, WGSA_COMPILE_CACHE=str(tmp_path), PYTHONPATH=root)
+    run = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    lib = run.stdout.strip().splitlines()[-1]
+    assert lib.startswith(str(tmp_path / "wgsassign_tpu_torch_kernels"))
+    assert os.path.exists(lib)
+    assert os.path.exists(os.path.join(os.path.dirname(lib), "ptxas.log"))
+
+
+def test_entry_runs_em_chunk_once_on_the_card(cuda):
+    """``entry()`` runs on the card by default, its step launches
+    ``em_chunk`` once, and ``f_new`` equals the CPU step (the kernel is
+    bit-equal to its twin) with the log-likelihoods to rtol 1e-5, atol
+    2e-3."""
+    from wgsassign_tpu_torch.graft_entry import entry
+
+    module, args = entry()
+    assert all(a.device == cuda for a in args)
+    before = _kernels.launches["em_chunk"]
+    f_new, ll = module(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["em_chunk"] == before + 1
+    cpu_module, cpu_args = entry("cpu")
+    f_cpu, ll_cpu = cpu_module(*cpu_args)
+    assert torch.equal(f_new.cpu(), f_cpu)
+    torch.testing.assert_close(ll.cpu(), ll_cpu, rtol=1e-5, atol=2e-3)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """Two ranks: each on a card of its own over NCCL where the host has
+    two, both on ``cuda:0`` over gloo where it has one."""
+    from wgsassign_tpu_torch.graft_entry import dryrun_multichip
+
+    got = dryrun_multichip(2)
+    own_cards = torch.cuda.device_count() >= 2
+    assert str(got["backend"]) == ("nccl" if own_cards else "gloo")
+    assert got["devices"].tolist() == (
+        ["cuda:0", "cuda:1"] if own_cards else ["cuda:0", "cuda:0"])
+    assert int(got["launches_em_chunk"]) >= 1
+    assert int(got["launches_loo_chunk"]) >= 1
+    assert int(got["launches_zloo_chunk"]) >= 1

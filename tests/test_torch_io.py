@@ -44,6 +44,7 @@ import wgsassign_tpu_torch.obs.log as tlog
 import wgsassign_tpu_torch.obs.profiling as tprof
 from wgsassign_tpu.obs.checkpoint import save_npz_atomic as jsave_npz
 from wgsassign_tpu_torch import _native as tnative
+from wgsassign_tpu_torch import compile_cache
 from wgsassign_tpu_torch.obs.checkpoint import save_npz_atomic as tsave_npz
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,19 +90,53 @@ def test_native_reader_is_built_outside_the_package():
     assert tnative.native_available()
     lib = tnative.library_path()
     assert lib.exists()
-    assert lib.parent.parent == tnative.BUILD_ROOT
+    assert lib.parent.parent == (compile_cache.CHECKOUT_BUILD
+                                 / tnative.BUILD_NAME)
     assert os.path.join("build", "wgsassign_tpu_torch_native") in str(lib)
     pkg = os.path.dirname(tnative.__file__)
     assert not [p for p in os.listdir(pkg) if p.endswith(".so")]
 
 
+LITTLE_ENDIAN_GATE = ("#if defined(__BYTE_ORDER__) && "
+                      "__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__")
+
+
 def test_native_source_is_the_jax_packages():
+    """The port's reader is the JAX package's but for the little-endian
+    gate around the SWAR digit parse (its helpers and both call sites):
+    only ``#if`` / ``#endif`` lines are added, nothing else changes."""
     with open(os.path.join(ROOT, "wgsassign_tpu", "_native",
-                           "beagle_reader.cpp"), "rb") as f:
-        want = f.read()
+                           "beagle_reader.cpp")) as f:
+        want = f.read().splitlines()
     with open(os.path.join(os.path.dirname(tnative.__file__),
-                           "beagle_reader.cpp"), "rb") as f:
-        assert f.read() == want
+                           "beagle_reader.cpp")) as f:
+        got = f.read().splitlines()
+    added = [ln for ln in got if ln in (LITTLE_ENDIAN_GATE, "#endif")]
+    assert added == [LITTLE_ENDIAN_GATE, "#endif"] * 3
+    assert [ln for ln in got if ln not in added] == want
+    swar = [i for i, ln in enumerate(got)
+            if "is_8_digits(" in ln or "parse_8_digits(" in ln
+            or "load_u64(" in ln]
+    gates = [(i, got.index("#endif", i)) for i, ln in enumerate(got)
+             if ln == LITTLE_ENDIAN_GATE]
+    assert swar and all(any(a < i < b for a, b in gates) for i in swar)
+
+
+def test_general_digit_loop_parses_like_the_jax_package(files, tmp_path,
+                                                       monkeypatch):
+    """The reader built as for a target that is not little-endian
+    (``-U__BYTE_ORDER__``: the gate is closed, every token takes the
+    general digit loop) parses the JAX package's arrays."""
+    lib = tmp_path / "libbeagle_reader.so"
+    subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+                    "-U__BYTE_ORDER__", str(tnative._SRC), "-o", str(lib),
+                    "-lz", "-lpthread"], check=True, timeout=300)
+    monkeypatch.setattr(tnative, "library_path", lambda: lib)
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_build_failed", False)
+    got = tnative.read_beagle_native(files["beagle"])
+    assert tnative._lib is not None and tnative._lib._name == str(lib)
+    _same_beagle(got, jbeagle.read_beagle(files["beagle"]))
 
 
 @pytest.mark.parametrize("use_native", [True, False])
@@ -118,6 +153,25 @@ def test_read_beagle_matches_jax(files, use_native, row_range):
 def test_read_beagle_parsers_agree(files):
     _same_beagle(tbeagle.read_beagle(files["beagle"], use_native=True),
                  tbeagle.read_beagle(files["beagle"], use_native=False))
+
+
+def test_dims_cache_key_and_path_are_the_jax_packages(files, tmp_path,
+                                                    monkeypatch):
+    """Both packages share ``~/.cache/wgsassign_tpu/beagle_dims.json`` on
+    purpose: one key, ``realpath|size|mtime_ns``, for the same row and
+    column counts."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    assert tbeagle._dims_cache_path() == jbeagle._dims_cache_path()
+    assert tbeagle._dims_cache_path().startswith(str(tmp_path))
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert tbeagle._dims_cache_path() == jbeagle._dims_cache_path()
+    for path in (files["beagle"], files["ds"], str(tmp_path / "absent")):
+        assert tbeagle._dims_cache_key(path) == jbeagle._dims_cache_key(path)
+    key = tbeagle._dims_cache_key(files["beagle"])
+    st = os.stat(files["beagle"])
+    assert key == (f"{os.path.realpath(files['beagle'])}|{st.st_size}|"
+                   f"{st.st_mtime_ns}")
 
 
 @pytest.mark.parametrize("use_native", [True, False])

@@ -5,9 +5,10 @@ per source, all started together, and linked into one shared library with
 a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so the
 build takes seconds).  The build happens at first use, into
 ``build/wgsassign_tpu_torch_kernels/<hash>/`` at the root of the checkout,
-keyed by a hash of the sources and flags; it is written under a temporary
-name and renamed into place, so concurrent first uses never load a
-half-written library.
+keyed by a hash of the sources and flags (``WGSA_COMPILE_CACHE`` moves
+that root, see :mod:`wgsassign_tpu_torch.compile_cache`); it is written
+under a temporary name and renamed into place, so concurrent first uses
+never load a half-written library.
 
 Each exported C function takes the device index and the stream, launches on
 that stream, allocates nothing and returns ``cudaGetLastError()``;
@@ -29,9 +30,10 @@ from pathlib import Path
 
 import torch
 
+from wgsassign_tpu_torch.compile_cache import build_root
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
-              / "wgsassign_tpu_torch_kernels")
+BUILD_NAME = "wgsassign_tpu_torch_kernels"
 SOURCES = ("probe.cu", "em_chunk.cu", "loo_chunk.cu", "zloo_chunk.cu",
            "sites_chunk.cu")
 HEADERS = ("common.cuh",)
@@ -91,7 +93,7 @@ def _source_hash() -> str:
 
 
 def library_path() -> Path:
-    return BUILD_ROOT / _source_hash() / LIB_NAME
+    return build_root(BUILD_NAME) / _source_hash() / LIB_NAME
 
 
 def build() -> tuple:

@@ -1,12 +1,17 @@
 """ctypes bindings + lazy build for the native Beagle parser.
 
 The port's own copy of ``wgsassign_tpu/_native``; ``beagle_reader.cpp`` is
-the same source byte for byte.  The shared library is built on first use
-with g++ into ``build/wgsassign_tpu_torch_native/<source hash>/`` at the
-root of the checkout (never next to this module: the ``-march=native``
-library belongs to the machine that built it), written under a temporary
-name and renamed into place; if no toolchain/zlib is available every caller
-falls back to the pure-Python parser transparently.
+the same source but for three ``#if`` / ``#endif`` pairs that keep its SWAR
+digit parse (an 8-byte load read as little-endian) to little-endian
+targets.  The shared library is built on first use with g++ into
+``build/wgsassign_tpu_torch_native/<hash>/`` at the root of the checkout,
+or under ``WGSA_COMPILE_CACHE`` (see
+:mod:`wgsassign_tpu_torch.compile_cache`); never next to this module: the
+``-march=native`` library belongs to the CPU that built it, so the hash
+covers the host's CPU besides the source and flags.  It is
+written under a temporary name and renamed into place; if no toolchain/zlib
+is available every caller falls back to the pure-Python parser
+transparently.
 """
 
 from __future__ import annotations
@@ -16,14 +21,16 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from wgsassign_tpu_torch.compile_cache import build_root, host_key
+
 _SRC = Path(__file__).resolve().parent / "beagle_reader.cpp"
-BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
-              / "wgsassign_tpu_torch_native")
+BUILD_NAME = "wgsassign_tpu_torch_native"
 LIB_NAME = "libbeagle_reader.so"
 _GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _lock = threading.Lock()
@@ -52,17 +59,29 @@ class _AdResult(ctypes.Structure):
 
 
 def library_path() -> Path:
-    """Where this source's library lives: keyed by a hash of the source and
-    the flags, so an edited reader never loads a stale build."""
+    """Where this source's library lives: keyed by a hash of the source, the
+    flags and the host's CPU, so an edited reader never loads a stale build
+    and a shared ``WGSA_COMPILE_CACHE`` never hands one CPU another's
+    ``-march=native`` code."""
     h = hashlib.sha256(" ".join(_GXX_FLAGS).encode())
+    h.update(host_key().encode())
     h.update(_SRC.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    return build_root(BUILD_NAME) / h.hexdigest()[:16] / LIB_NAME
 
 
-def _build() -> Optional[str]:
+def build() -> tuple:
+    """Compile the library unless this source hash is built already.
+    Returns ``(path, seconds spent compiling)``, with path None when g++ or
+    zlib is missing or the compile failed."""
     path = library_path()
     if path.exists():
-        return str(path)
+        return str(path), 0.0
+    t0 = time.perf_counter()
+    built = _compile(path)
+    return built, time.perf_counter() - t0
+
+
+def _compile(path: Path) -> Optional[str]:
     tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
     # The library is always compiled on the machine that runs it (lazy local
     # build), so -march=native is safe and speeds up the SWAR token parse;
@@ -97,7 +116,7 @@ def _get_lib():
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        path = _build()
+        path, _ = build()
         if path is None:
             _build_failed = True
             return None

@@ -76,6 +76,7 @@ int64_t count_data_lines(const char* p, const char* end) {
   return n;
 }
 
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
 // SWAR helpers for the dominant token shape "d.dddddd" (ANGSD/beagle GLs
 // are "%.6f"-formatted: one integer digit, '.', exactly six fraction
 // digits — 8 bytes).  One unaligned 8-byte load covers the whole token;
@@ -105,6 +106,7 @@ inline uint32_t parse_8_digits(uint64_t w) {
       32;
   return static_cast<uint32_t>(w);
 }
+#endif
 
 inline bool is_sep(char c) {
   return c == ' ' || c == '\t' || c == '\n' || c == '\r';
@@ -122,6 +124,7 @@ inline const char* parse_float(const char* p, const char* end, float* out) {
     neg = (*p == '-');
     ++p;
   }
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
   // fast path: exactly "d.dddddd" followed by a separator
   if (end - p >= 9 && p[1] == '.' && is_sep(p[8])) {
     uint64_t w = load_u64(p);
@@ -133,6 +136,7 @@ inline const char* parse_float(const char* p, const char* end, float* out) {
       return p + 8;
     }
   }
+#endif
   int64_t mant = 0;
   int digits = 0;
   while (p < end && *p >= '0' && *p <= '9') {
@@ -188,6 +192,7 @@ inline const char* skip_token(const char* p, const char* end) {
 inline const char* skip_required_token(const char* p, const char* end) {
   while (p < end && (*p == ' ' || *p == '\t')) ++p;
   if (p >= end || *p == '\n' || *p == '\r') return nullptr;
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
   // fast path: the fixed-width "d.dddddd" shape needs no per-char scan
   // (the digit check keeps short tokens like "1.5\t2.0" off this path —
   // a bare p[8]-separator test could jump two tokens at once)
@@ -196,6 +201,7 @@ inline const char* skip_required_token(const char* p, const char* end) {
     uint64_t digits = ((w & 0xFF) | ((w >> 8) & ~0xFFull)) << 8 | 0x30;
     if (is_8_digits(digits)) return p + 8;
   }
+#endif
   while (p < end && *p != ' ' && *p != '\t' && *p != '\n' && *p != '\r') ++p;
   return p;
 }

@@ -195,8 +195,8 @@ def main(argv=None, device=None):
             )
         n_ranks = _local_ranks(args.devices, device)
         if n_ranks > 1:
-            _run_local_ranks(sys.argv[1:] if argv is None else list(argv),
-                             device, n_ranks)
+            run_on_local_ranks(
+                sys.argv[1:] if argv is None else list(argv), device, n_ranks)
             return None
     return _run(args, device, None)
 
@@ -225,49 +225,18 @@ def _local_ranks(asked: int, device: str) -> int:
     return min(asked, have)
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def _rank_entry(rank, world, address, argv, device):
     """Entry point of one ``--devices`` rank (a spawned process)."""
     _run(parser.parse_args(argv), device, (address, world, rank))
 
 
-def _run_local_ranks(argv, device, world):
-    """Start ``world`` ranks of this command on this host with the ``spawn``
-    start method (CUDA forbids ``fork`` once it is initialised), wait for
-    all, and raise if any failed; the others are stopped then."""
-    import multiprocessing
-    import time
+def run_on_local_ranks(argv, device, world):
+    """Run ``world`` ranks of this command on this host (see
+    :func:`wgsassign_tpu_torch.parallel.runtime.run_local_ranks`)."""
+    from wgsassign_tpu_torch.parallel.runtime import run_local_ranks
 
-    ctx = multiprocessing.get_context("spawn")
-    address = f"127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_rank_entry,
-                         args=(rank, world, address, argv, device))
-             for rank in range(world)]
-    for proc in procs:
-        proc.start()
-    try:
-        while any(proc.is_alive() for proc in procs):
-            if any(proc.exitcode not in (None, 0) for proc in procs):
-                break
-            time.sleep(0.05)
-    finally:
-        for proc in procs:
-            if proc.is_alive():
-                proc.terminate()
-        for proc in procs:
-            proc.join()
-    failed = {rank: proc.exitcode for rank, proc in enumerate(procs)
-              if proc.exitcode != 0}
-    if failed:
-        raise RuntimeError(
-            f"--devices {world}: rank(s) failed (rank: exit code) {failed}")
+    run_local_ranks(_rank_entry, world, argv, device,
+                    what=f"--devices {world}")
 
 
 def _run(args, device, ranks):
@@ -275,16 +244,20 @@ def _run(args, device, ranks):
     at the address ``ranks[0]`` (None: read the ``WGSA_*`` variables)."""
     import torch
 
+    from wgsassign_tpu_torch.compile_cache import build_base
     from wgsassign_tpu_torch.io import writers
     from wgsassign_tpu_torch.obs.log import setup_logging
     from wgsassign_tpu_torch.obs.profiling import RunTimer
     from wgsassign_tpu_torch.obs.profiling import maybe_profile
     from wgsassign_tpu_torch.parallel.runtime import (
+        log,
         make_runtime,
         shutdown_distributed,
     )
 
     setup_logging(args.log_level)  # a spawned rank starts unconfigured
+    log.info("native builds (CUDA kernels, Beagle reader) under %s",
+             build_base())
     use_kernels = True if args.use_pallas else (
         False if args.no_pallas else None)
     runtime = make_runtime(device, fast_math=not args.no_fast_em,

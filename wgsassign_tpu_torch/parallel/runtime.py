@@ -222,6 +222,46 @@ def maybe_initialize_distributed(device, ranks: Optional[tuple] = None) -> tuple
     return device, rank, world, backend, group
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_local_ranks(target, world: int, *args, what: str = "ranks") -> None:
+    """Start ``world`` processes ``target(rank, world, address, *args)`` on
+    this host with the ``spawn`` start method (CUDA forbids ``fork`` once it
+    is initialised), ``address`` a free local port for
+    :func:`maybe_initialize_distributed`; wait for all, and raise
+    RuntimeError if any failed: the others are stopped then, so a rank whose
+    peer died never waits out :data:`COLLECTIVE_TIMEOUT`."""
+    import multiprocessing
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    address = f"127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=target, args=(rank, world, address, *args))
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        while any(proc.is_alive() for proc in procs):
+            if any(proc.exitcode not in (None, 0) for proc in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in procs:
+            proc.join()
+    failed = {rank: proc.exitcode for rank, proc in enumerate(procs)
+              if proc.exitcode != 0}
+    if failed:
+        raise RuntimeError(
+            f"{what}: rank(s) failed (rank: exit code) {failed}")
+
+
 def shutdown_distributed(runtime: Runtime) -> None:
     """Leave the process group (after a last barrier, so no rank tears the
     store down under a peer still in a collective)."""
