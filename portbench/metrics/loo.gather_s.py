@@ -1,0 +1,14 @@
+"""Device seconds per analysis in the port's ``wgsa.loo.gather`` spans:
+the member-panel gathers and transposes of ``leave_one_out``
+(``index_select(...).t().contiguous()``), timed by the port on the CUDA
+stream from each span's entry to its exit, in the traced window only
+(``spantrace.port_span_seconds``)."""
+
+from portbench.spantrace import port_span_seconds
+
+
+def read(run):
+    if run.trace is None or not run.analyses:
+        return None
+    seconds = port_span_seconds("wgsa.loo.gather", "device_s")
+    return None if not seconds else seconds / run.analyses

@@ -660,3 +660,30 @@ def test_dryrun_multichip_on_the_card(cuda):
     assert int(got["launches_em_chunk"]) >= 1
     assert int(got["launches_loo_chunk"]) >= 1
     assert int(got["launches_zloo_chunk"]) >= 1
+
+
+def test_a_span_times_the_cuda_stream(cuda, monkeypatch):
+    """While a profiler records, a span times its work on the card from two
+    stream events, without synchronizing; the totals wait for them."""
+    import wgsassign_tpu_torch.obs.profiling as prof
+    from collections import defaultdict
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(prof, "_spans", defaultdict(list))
+    x = torch.rand(4096, 4096, device=cuda)
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span synchronized")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", refuse)
+            m.setattr(torch.cuda.Event, "synchronize", refuse)
+            with prof.span("wgsa.test.matmul"):
+                for _ in range(4):
+                    y = x @ x
+    got = prof.span_totals()["wgsa.test.matmul"]
+    assert got["calls"] == 1
+    assert got["device_s"] > 0 and got["host_s"] > 0
+    assert torch.isfinite(y).all()

@@ -307,8 +307,15 @@ def test_engine_flags_run(flags, needs, outputs, flag_inputs, tmp_path,
         else:
             assert (open(prefix + suffix).read()
                     == open(base + suffix).read()), suffix
+    assert "throughput" not in printed
     if "--profile" in flags:
         assert os.listdir(tmp_path / "trace")
+        # the run's counters follow the timing summary
+        summary = printed[printed.index("-- timing summary --"):]
+        assert "-- counters --" in summary
+        assert "host_syncs" in summary.split("-- counters --")[1]
+    else:
+        assert "-- counters --" not in printed
 
 
 def test_default_device_needs_cuda(cohort_files, tmp_path):

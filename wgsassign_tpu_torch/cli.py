@@ -291,9 +291,9 @@ def _run(args, device, ranks):
         timer.results["mesh"] = {"rank": runtime.rank, "world": runtime.world,
                                  "backend": runtime.backend,
                                  "device": str(runtime.device)}
-        with maybe_profile(args.profile, runtime.device):
+        with maybe_profile(args.profile, runtime.device) as counts:
             _dispatch(args, runtime, timer, writers)
-        timer.report()
+        timer.report(counts)
         shutdown_distributed(runtime)
     finally:
         sys.stdout = stdout
@@ -459,14 +459,6 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
                              if args.em_checkpoint else None),
         )
     timer.results["reference_af"] = res
-    em_secs = timer.totals["reference_af"]
-    total_updates = float(
-        cohort.m_real * sum(
-            int(it) * int(sz) for it, sz in zip(res.iters, popmap.pop_sizes)
-        )
-    )
-    print(f"EM throughput: {total_updates / max(em_secs, 1e-9):.3g} "
-          "site-individual GL updates/s")
     print(f"EM (MAF) engine: {res.engine}")
     for pop, it, conv in zip(res.pops, res.iters, res.converged):
         status = f"converged at iteration: {it}" if conv else \
@@ -518,14 +510,6 @@ def _reference_af(args, beagle, cohort, downsampled, downsampled_cohort,
             af_t_dev=res.af_t_dev,
         )
     timer.results["loo"] = loo_res
-    loo_secs = timer.totals["loo"]
-    sizes_of = dict(zip(popmap.pops, popmap.pop_sizes))
-    pairwise_updates = float(cohort.m_real) * sum(
-        int(it) * int(sizes_of[lab])
-        for it, lab in zip(loo_res.iters, popmap.pop_labels)
-    )
-    print(f"LOO EM throughput: {pairwise_updates / max(loo_secs, 1e-9):.3g} "
-          "pairwise site-member updates/s")
     print("LOO EM engines: " + ", ".join(
         f"{pop}={eng}" for pop, eng in zip(res.pops, loo_res.engines)))
     suffix = ("_downsampled"

@@ -18,6 +18,7 @@ from wgsassign_tpu_torch.models.common import (
     local_rows,
     to_device,
 )
+from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.loglik import (
     assign_loglik,
     assign_loglik_f64,
@@ -51,25 +52,28 @@ def assignment_loglikelihoods(
     if cohort is None:
         cohort = to_device(beagle, runtime, site_multiple=num_partitions)
     rt = cohort.runtime
-    (af_dev,) = from_jax_arrays(
-        local_rows(np.asarray(af, np.float32), cohort, PAD_AF),
-        device=rt.device)
+    with span("wgsa.assign.af_upload"):
+        (af_dev,) = from_jax_arrays(
+            local_rows(np.asarray(af, np.float32), cohort, PAD_AF),
+            device=rt.device)
     args = (cohort.g0, cohort.g1, af_dev, cohort.site_weight)
     reduce = rt.all_reduce_sum
     if rt.debug_checks:
         check_loglik_inputs(*args, reduce=reduce)
-    if num_partitions <= 1:
+    count("host_syncs")
+    with span("wgsa.loglik.pass"):
+        if num_partitions <= 1:
+            if f64_sums:
+                ll = assign_loglik_f64(*args, reduce=reduce)
+            else:
+                ll = assign_loglik(*args, reduce=reduce).cpu().numpy()
+            return ll.astype(np.float32)
         if f64_sums:
-            ll = assign_loglik_f64(*args, reduce=reduce)
+            parts = assign_loglik_partitioned_f64(*args, num_partitions,
+                                                  reduce=reduce)
         else:
-            ll = assign_loglik(*args, reduce=reduce).cpu().numpy()
-        return ll.astype(np.float32)
-    if f64_sums:
-        parts = assign_loglik_partitioned_f64(*args, num_partitions,
-                                              reduce=reduce)
-    else:
-        parts = assign_loglik_partitioned(*args, num_partitions,
-                                          reduce=reduce).cpu().numpy()
+            parts = assign_loglik_partitioned(*args, num_partitions,
+                                              reduce=reduce).cpu().numpy()
     ll = parts.sum(axis=0).astype(np.float32)  # [N, K]
     n, k = ll.shape
     parts_nk = np.transpose(parts.astype(np.float32), (1, 0, 2)).reshape(

@@ -54,6 +54,7 @@ from wgsassign_tpu_torch.models.common import (
     to_device,
 )
 from wgsassign_tpu_torch.obs.checkpoint import make_checkpoint
+from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.emmaf import _EM_EPS, em_maf_loo_group
 from wgsassign_tpu_torch.ops.fused_em import em_maf_loo_group_fused
 from wgsassign_tpu_torch.ops.loglik import (
@@ -181,76 +182,53 @@ def leave_one_out(
     engines = []
     reduce = rt.all_reduce_sum
     for j, pop in enumerate(popmap.pops):
-        members = popmap.members_of(pop)
-        members_d = torch.from_numpy(members).to(device)
-        done_path = (f"{checkpoint_path}.pop{j}.done.npz"
-                     if checkpoint_path else None)
-        # rank 0's view of the file decides, so the ranks stay in step
-        if done_path and rt.broadcast_object(os.path.exists(done_path)):
-            # per-population restart point: this population's LOO EM already
-            # finished in an interrupted earlier run
-            with np.load(done_path) as z:
-                f_h = np.full((len(members), m_pad), PAD_AF, np.float32)
-                f_h[:, : cohort.n_local] = z["f"][:, cohort.lo : cohort.hi]
-                it_p, conv_p = z["iters"], z["converged"]
-            f_p = torch.from_numpy(f_h).to(device)
-            engine = "restart file"
-        else:
-            f_p, it_p, conv_p, engine = _loo_group_em(
-                rt, cohort, members_d, m_real, max_iter, tol,
-                chunk_ckpt_path=(f"{checkpoint_path}.pop{j}.npz"
-                                 if checkpoint_path else None),
-                chunk_op=chunk_op,
-            )
-            if done_path:
-                _save_pop_done(done_path, cohort, f_p, it_p, conv_p)
-        engines.append(engine)
-        n_loo = sizes[j] - 1
-        min_val = np.float32(1.0 / (2.0 * (n_loo + 1.0)))
-        # mini-bank for LL column j: this population's clamped LOO rows
-        # plus the full-data column (row n_p) for individuals no j-member
-        # precedes
-        mini_bank = _mini_bank(f_p, af_t, j, min_val)
-        # map the global AF row selection to mini-bank rows: member index
-        # -> its position; the full-data sentinel (n + j) sorts past every
-        # member and lands on row n_p
-        col_j = torch.from_numpy(np.searchsorted(
-            members, col_idx_global[:, j]
-        ).astype(np.int32).reshape(n, 1)).to(device)
-        if num_partitions <= 1:
-            if f64_sums:
-                ll_j = assign_loglik_selected_f64(
-                    src.g0, src.g1, mini_bank, col_j, src.site_weight,
-                    reduce=reduce,
-                )
+        with span("wgsa.loo.population"):
+            members = popmap.members_of(pop)
+            members_d = torch.from_numpy(members).to(device)
+            done_path = (f"{checkpoint_path}.pop{j}.done.npz"
+                         if checkpoint_path else None)
+            # rank 0's view of the file decides, so the ranks stay in step
+            if done_path and rt.broadcast_object(os.path.exists(done_path)):
+                # per-population restart point: this population's LOO EM
+                # already finished in an interrupted earlier run
+                with np.load(done_path) as z:
+                    f_h = np.full((len(members), m_pad), PAD_AF, np.float32)
+                    f_h[:, : cohort.n_local] = z["f"][:, cohort.lo : cohort.hi]
+                    it_p, conv_p = z["iters"], z["converged"]
+                f_p = torch.from_numpy(f_h).to(device)
+                engine = "restart file"
             else:
-                ll_j = assign_loglik_selected(
-                    src.g0, src.g1, mini_bank, col_j, src.site_weight,
-                    reduce=reduce,
-                ).cpu().numpy()
-            ll[:, j] = np.asarray(ll_j)[:, 0]
-            parts_nk[:, 0, j] = ll[:, j]
-        else:
-            if f64_sums:
-                ll_j, parts_j = assign_loglik_selected_partitioned_f64(
-                    src.g0, src.g1, mini_bank, col_j, src.site_weight,
-                    num_partitions, reduce=reduce,
+                f_p, it_p, conv_p, engine = _loo_group_em(
+                    rt, cohort, members_d, m_real, max_iter, tol,
+                    chunk_ckpt_path=(f"{checkpoint_path}.pop{j}.npz"
+                                     if checkpoint_path else None),
+                    chunk_op=chunk_op,
                 )
-            else:
-                ll_jd, parts_jd = assign_loglik_selected_partitioned(
-                    src.g0, src.g1, mini_bank, col_j, src.site_weight,
-                    num_partitions, reduce=reduce,
-                )
-                ll_j = ll_jd.cpu().numpy()
-                parts_j = parts_jd.cpu().numpy()
-            ll[:, j] = np.asarray(ll_j)[:, 0]
-            parts_nk[:, :, j] = np.asarray(parts_j)[:, :, 0]
-        iters[members] = it_p
-        converged[members] = conv_p
-        if verbose:
-            print(f"LOO EM for population {pop}: {len(members)} problems, "
-                  f"iterations {iters[members].min()}..{iters[members].max()}"
-                  f" (engine: {engine})")
+                if done_path:
+                    _save_pop_done(done_path, cohort, f_p, it_p, conv_p)
+            engines.append(engine)
+            n_loo = sizes[j] - 1
+            min_val = np.float32(1.0 / (2.0 * (n_loo + 1.0)))
+            with span("wgsa.loo.bank"):
+                # mini-bank for LL column j: this population's clamped LOO
+                # rows plus the full-data column (row n_p) for individuals
+                # no j-member precedes
+                mini_bank = _mini_bank(f_p, af_t, j, min_val)
+                # map the global AF row selection to mini-bank rows: member
+                # index -> its position; the full-data sentinel (n + j)
+                # sorts past every member and lands on row n_p
+                col_j = torch.from_numpy(np.searchsorted(
+                    members, col_idx_global[:, j]
+                ).astype(np.int32).reshape(n, 1)).to(device)
+            with span("wgsa.loglik.selected"):
+                ll[:, j], parts_nk[:, :, j] = _column_loglik(
+                    src, mini_bank, col_j, num_partitions, f64_sums, reduce)
+            iters[members] = it_p
+            converged[members] = conv_p
+            if verbose:
+                print(f"LOO EM for population {pop}: {len(members)} "
+                      f"problems, iterations {iters[members].min()}.."
+                      f"{iters[members].max()} (engine: {engine})")
     if checkpoint_path and rt.is_primary():
         # LOO finished: drop the per-population restart files
         for j in range(k):
@@ -280,25 +258,50 @@ def _mini_bank(f_p, af_t, j, min_val):
     )
 
 
+def _column_loglik(src, mini_bank, col_j, num_partitions, f64_sums,
+                   reduce):
+    """One population's LL column against its mini-bank, fetched to the
+    host: ``(ll [N], parts [N, P])`` (P = 1 without partitions)."""
+    args = (src.g0, src.g1, mini_bank, col_j, src.site_weight)
+    count("host_syncs")
+    if num_partitions <= 1:
+        if f64_sums:
+            ll_j = assign_loglik_selected_f64(*args, reduce=reduce)
+        else:
+            ll_j = assign_loglik_selected(*args, reduce=reduce).cpu().numpy()
+        ll_j = np.asarray(ll_j)[:, 0]
+        return ll_j, ll_j[:, None]
+    if f64_sums:
+        ll_j, parts_j = assign_loglik_selected_partitioned_f64(
+            *args, num_partitions, reduce=reduce)
+    else:
+        ll_jd, parts_jd = assign_loglik_selected_partitioned(
+            *args, num_partitions, reduce=reduce)
+        ll_j, parts_j = ll_jd.cpu().numpy(), parts_jd.cpu().numpy()
+    return np.asarray(ll_j)[:, 0], np.asarray(parts_j)[:, :, 0]
+
+
 def _loo_group_em(rt, cohort, members_d, m_real, max_iter, tol,
                   chunk_ckpt_path=None, chunk_op=loo_chunk):
     """One population's batched LOO EM.  Returns ``(f [n_p, M] on the
     device, iters, converged, engine)``: the chunked EM (the ``loo_chunk``
     kernel on a GPU), or under ``--no_pallas`` the plain
     :func:`em_maf_loo_group` on the same device."""
-    g0p, g1p = _member_panels(cohort.g0, cohort.g1, members_d)
+    with span("wgsa.loo.gather"):
+        g0p, g1p = _member_panels(cohort.g0, cohort.g1, members_d)
     reduce = rt.all_reduce_sum
-    if not rt.chunked_em():
-        f, iters, conv = em_maf_loo_group(
-            g0p, g1p, cohort.site_weight, m_real, max_iter, tol,
-            reduce=reduce)
-        return f, iters.cpu().numpy(), conv.cpu().numpy(), "plain"
-    f, iters, conv = em_maf_loo_group_fused(
-        g0p, g1p, m_real, max_iter, tol,
-        checkpoint=make_checkpoint(chunk_ckpt_path, cohort, _EM_EPS),
-        fast_math=rt.fast_math, chunk_op=chunk_op, reduce=reduce,
-        n_local=cohort.n_local,
-    )
+    with span("wgsa.loo.em"):
+        if not rt.chunked_em():
+            f, iters, conv = em_maf_loo_group(
+                g0p, g1p, cohort.site_weight, m_real, max_iter, tol,
+                reduce=reduce)
+            return f, iters.cpu().numpy(), conv.cpu().numpy(), "plain"
+        f, iters, conv = em_maf_loo_group_fused(
+            g0p, g1p, m_real, max_iter, tol,
+            checkpoint=make_checkpoint(chunk_ckpt_path, cohort, _EM_EPS),
+            fast_math=rt.fast_math, chunk_op=chunk_op, reduce=reduce,
+            n_local=cohort.n_local,
+        )
     return f, iters, conv, "loo_chunk"
 
 

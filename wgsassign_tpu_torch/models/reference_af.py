@@ -31,6 +31,7 @@ from wgsassign_tpu_torch.models.common import (
     to_device,
 )
 from wgsassign_tpu_torch.obs.checkpoint import make_checkpoint
+from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk
 from wgsassign_tpu_torch.ops.emmaf import _EM_EPS, em_maf_pops
 from wgsassign_tpu_torch.ops.fused_em import em_maf_pops_fused
@@ -75,40 +76,45 @@ def estimate_reference_af(
     if cohort is None:
         cohort = to_device(beagle, runtime)
     rt = cohort.runtime
-    if rt.chunked_em():  # on a GPU: build, load and probe, or raise
-        engine = "em_chunk"
-        ft, iters, converged = em_maf_pops_fused(
-            cohort.g0,
-            cohort.g1,
-            popmap.membership,
-            cohort.site_weight,
-            cohort.m_real,
-            max_iter,
-            tol,
-            checkpoint=make_checkpoint(checkpoint_path, cohort, _EM_EPS),
-            fast_math=rt.fast_math,
-            return_device_panel=True,
-            chunk_op=chunk_op,
-            reduce=rt.all_reduce_sum,
-        )
-    else:
-        engine = "plain"
-        membership, pop_index = from_jax_arrays(
-            popmap.membership, popmap.pop_index, device=rt.device)
-        f, iters, converged = em_maf_pops(
-            cohort.g0, cohort.g1, membership, pop_index, cohort.site_weight,
-            cohort.m_real, max_iter, tol, reduce=rt.all_reduce_sum,
-        )
-        ft = f.t().contiguous()
-        iters, converged = iters.cpu().numpy(), converged.cpu().numpy()
+    with span("wgsa.refaf.em"):
+        if rt.chunked_em():  # on a GPU: build, load and probe, or raise
+            engine = "em_chunk"
+            ft, iters, converged = em_maf_pops_fused(
+                cohort.g0,
+                cohort.g1,
+                popmap.membership,
+                cohort.site_weight,
+                cohort.m_real,
+                max_iter,
+                tol,
+                checkpoint=make_checkpoint(checkpoint_path, cohort, _EM_EPS),
+                fast_math=rt.fast_math,
+                return_device_panel=True,
+                chunk_op=chunk_op,
+                reduce=rt.all_reduce_sum,
+            )
+        else:
+            engine = "plain"
+            membership, pop_index = from_jax_arrays(
+                popmap.membership, popmap.pop_index, device=rt.device)
+            f, iters, converged = em_maf_pops(
+                cohort.g0, cohort.g1, membership, pop_index,
+                cohort.site_weight, cohort.m_real, max_iter, tol,
+                reduce=rt.all_reduce_sum,
+            )
+            ft = f.t().contiguous()
+            iters, converged = iters.cpu().numpy(), converged.cpu().numpy()
     # clamp on the device in the site-minor layout (padded sites clamp to
     # min_val, harmless: everything downstream weights them to zero), keep
     # the panel for the LOO mini-banks, fetch one host copy for .pop_af.npy
     min_val = 1.0 / (2.0 * (popmap.pop_sizes.astype(np.float32) + 1.0))
-    af_t_dev = _clamp_rows(ft, min_val)
-    af = np.ascontiguousarray(
-        gather_real_sites(cohort, af_t_dev, axis=1, to_all=True).T
-    ).astype(np.float32)
+    with span("wgsa.refaf.clamp"):
+        af_t_dev = _clamp_rows(ft, min_val)
+    with span("wgsa.refaf.fetch"):
+        af = np.ascontiguousarray(
+            gather_real_sites(cohort, af_t_dev, axis=1, to_all=True).T
+        ).astype(np.float32)
+    count("host_syncs")
     return ReferenceAFResult(
         af=af,
         pops=popmap.pops,

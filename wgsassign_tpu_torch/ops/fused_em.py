@@ -20,6 +20,12 @@ With several ranks each rank runs the chunks on its window of the site axis;
 the host reads it, so every rank derives the same RMSEs, limits and replay
 decision (counterpart of the ``psum`` in the JAX package's
 ``_sharded_*_chunk_fn``).
+
+Under a recording profiler each chunk is the span ``wgsa.em.chunk``, with
+``wgsa.em.sync`` (the ``sq`` fetch) and ``wgsa.em.replay`` inside it, and
+adds to the counters ``<kernel>.launches``, ``.replays``,
+``.launched_iters``, ``.useful_iters`` and ``host_syncs``
+(``wgsassign_tpu_torch/obs/profiling.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk
 from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
 from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
@@ -132,7 +139,7 @@ def em_maf_pops_fused(
     _use_jax_layout(checkpoint, k, m_real)
     ft, iters, active = _drive_chunks(
         run_chunk, put_ft, ft, k, max_iter, tol, m_real, chunk, checkpoint,
-        reduce,
+        reduce, name="em_chunk",
     )
     if return_device_panel:
         return ft, iters, ~active
@@ -141,7 +148,7 @@ def em_maf_pops_fused(
 
 
 def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
-                  chunk, checkpoint, reduce=None):
+                  chunk, checkpoint, reduce=None, *, name):
     """Shared chunk/replay orchestration for the fused EMs.
 
     ``run_chunk(ft, limits [P] float32 numpy, T)`` runs T fused iterations
@@ -158,8 +165,16 @@ def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
     summed over the ranks before the host reads it: every decision below is
     taken from that sum alone, so the ranks stay in step.
 
+    ``name`` is the chunk kernel's name, the prefix of the counters of
+    launches, replays, launched and useful problem-iterations
+    (:func:`wgsassign_tpu_torch.obs.profiling.count`); ``host_syncs``
+    counts the ``sq`` fetches.
+
     Returns ``(ft, iters [P] int32, active [P] bool)``.
     """
+    launches, replays, launched, useful = (
+        name + s for s in (".launches", ".replays", ".launched_iters",
+                           ".useful_iters"))
     m_real_vec = np.broadcast_to(
         np.asarray(m_real, np.float64), (n_problems,)
     )
@@ -174,36 +189,48 @@ def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
             iters = np.asarray(iters, np.int32)
             active = np.asarray(active, bool)
     while it < max_iter and active.any():
-        T = min(chunk, max_iter - it)
-        limits_vec = np.where(active, T, 0).astype(np.float32)
-        ft_snapshot = ft
-        ft, sq = run_chunk(ft, limits_vec, T)
-        if reduce is not None:
-            sq = reduce(sq)
-        # the one device->host sync of the chunk
-        rmse = np.sqrt(np.maximum(sq.cpu().numpy(), 0.0) / m_real_vec[None, :])
-        # first iteration (within chunk) at which each active problem converged
-        crossed = rmse < tol  # [T, P]
-        exact_limits = limits_vec.copy()
-        replay = False
-        for kk in range(n_problems):
-            if not active[kk]:
-                continue
-            hits = np.flatnonzero(crossed[:T, kk])
-            if hits.size:
-                t_star = int(hits[0]) + 1  # updates taken when it converged
-                iters[kk] = it + t_star
-                active[kk] = False
-                if t_star < T:
-                    exact_limits[kk] = t_star
-                    replay = True
-        if replay:
-            ft, _ = run_chunk(ft_snapshot, exact_limits, T)
-        it += T
-        if checkpoint is not None:
-            checkpoint.maybe_save(ft, iters, active, it)
+        with span("wgsa.em.chunk"):
+            T = min(chunk, max_iter - it)
+            limits_vec = np.where(active, T, 0).astype(np.float32)
+            ft_snapshot = ft
+            ft, sq = run_chunk(ft, limits_vec, T)
+            count(launches)
+            count(launched, limits_vec.sum())
+            if reduce is not None:
+                sq = reduce(sq)
+            # the one device->host sync of the chunk
+            with span("wgsa.em.sync"):
+                sq_h = sq.cpu().numpy()
+            count("host_syncs")
+            rmse = np.sqrt(np.maximum(sq_h, 0.0) / m_real_vec[None, :])
+            # first iteration (within chunk) at which each active problem
+            # converged
+            crossed = rmse < tol  # [T, P]
+            exact_limits = limits_vec.copy()
+            replay = False
+            for kk in range(n_problems):
+                if not active[kk]:
+                    continue
+                hits = np.flatnonzero(crossed[:T, kk])
+                if hits.size:
+                    # updates taken when it converged
+                    t_star = int(hits[0]) + 1
+                    iters[kk] = it + t_star
+                    active[kk] = False
+                    if t_star < T:
+                        exact_limits[kk] = t_star
+                        replay = True
+            if replay:
+                with span("wgsa.em.replay"):
+                    ft, _ = run_chunk(ft_snapshot, exact_limits, T)
+                count(replays)
+                count(launched, exact_limits.sum())
+            it += T
+            if checkpoint is not None:
+                checkpoint.maybe_save(ft, iters, active, it)
     if checkpoint is not None:
         checkpoint.clear()
+    count(useful, iters.sum())
     return ft, iters, active
 
 
@@ -246,7 +273,7 @@ def em_maf_loo_group_fused(
     _use_jax_layout(checkpoint, -(-n_p // 8) * 8, m_real)
     ft, iters, active = _drive_chunks(
         run_chunk, put_ft, ft, n_p, max_iter, tol, m_real, chunk, checkpoint,
-        reduce,
+        reduce, name="loo_chunk",
     )
     return ft, iters, ~active
 
@@ -288,7 +315,8 @@ def em_maf_loo_subset_fused(
 
     ft = torch.full((b, m), 0.25, dtype=_F32, device=device)
     ft, iters, active = _drive_chunks(
-        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce
+        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce,
+        name="zloo_chunk",
     )
     return ft, iters, ~active
 
@@ -333,6 +361,7 @@ def em_maf_sites_batch_fused(
 
     ft = torch.full((b, s), 0.25, dtype=_F32, device=device)
     ft, iters, active = _drive_chunks(
-        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce
+        run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce,
+        name="sites_chunk",
     )
     return ft, iters, ~active
