@@ -15,7 +15,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    its share of it and the occupancy the CUDA runtime reports (and, for
    the two z-score kernels, the kernel's time at the other EM structure's
    typical kept fraction, ``zloo_chunk`` with ascending left-out rows and
-   ``sites_chunk`` with half its problems at limit 0);
+   ``sites_chunk`` with half its problems at limit 0; for the likelihood
+   pass ``loglik``, the benchmark's leave-one-out column and assignment
+   call at 5,000,000 sites);
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
@@ -63,13 +65,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
 11. the entry points of ``wgsassign_tpu_torch/graft_entry.py``: (a)
    ``entry()`` on the card against ``entry("cpu")`` at the hooks' shape
    (1,024 x 64 x 4): ``f_new`` bit for bit, log-likelihoods to rtol 1e-5 /
-   atol 2e-3, exactly one ``em_chunk`` launch; (b) the same
-   ``ForwardStep`` at phase 4's width (1,000,000 x 180 x 5, GLs drawn on the
-   card from seed 0) with the kernel against its twin, both on the card,
-   bit for bit, with CUDA-event times of the step and of ``em_chunk`` at
-   T=1 beside ``em_chunk``'s bound at T=1; (c) ``dryrun_multichip(max(2,
-   device_count))``: with one card both ranks share ``cuda:0`` over gloo,
-   with several each rank has its own over NCCL; the phase prints which.
+   atol 2e-3, exactly one ``em_chunk`` and one ``loglik`` launch; (b) the
+   same ``ForwardStep`` at phase 4's width (1,000,000 x 180 x 5, GLs drawn
+   on the card from seed 0) with the kernel against its twin, both on the
+   card, bit for bit, with CUDA-event times of the step and of
+   ``em_chunk`` at T=1 beside ``em_chunk``'s bound at T=1; (c)
+   ``dryrun_multichip(max(2, device_count))``: with one card both ranks
+   share ``cuda:0`` over gloo, with several each rank has its own over
+   NCCL; the phase prints which.
 
 ``python3 chip_smoke.py --rank-worker SPEC.json`` is one such rank (phase 10
 starts it; it reads its rank from the three variables).
@@ -153,7 +156,16 @@ KERNELS = {
                    f"{PALLAS}:1174", "6a"),
     "sites_chunk": ("wgsassign_tpu_torch/csrc/sites_chunk.cu",
                     f"{PALLAS}:1068", "6b"),
+    "loglik": ("wgsassign_tpu_torch/csrc/loglik.cu",
+               "none (wgsassign_tpu/ops/loglik.py is XLA-fused jnp)", "4"),
 }
+# the likelihood pass at the benchmark's shapes (portbench/configs): a
+# leave-one-out column (a population of 49 at individuals [60, 109), its
+# mini-bank of 50 rows) and an assignment call of 34 individuals against
+# K = 5 columns, both at 5,000,000 sites with float64 sums.  The sums of the
+# kernel and of its plain form add the same float32 terms in another order
+LL_M, LL_LOO_N, LL_LOO_POP, LL_LOO_FIRST = 5_000_000, 180, 49, 60
+LL_ASSIGN_N, LL_ASSIGN_K, LL_SUM_RTOL = 34, 5, 1e-12
 
 
 def paths_kernels(path):
@@ -322,6 +334,74 @@ def kernels_vs_twins(dev, results):
     )
     del g0p, g1p, ftp, f_k, f_t
     zscore_kernels_vs_twins(dev, gen, results)
+    loglik_vs_twin(dev, gen, results)
+
+
+def loglik_vs_twin(dev, gen, results):
+    """Phase 3, the likelihood pass (``loglik``) against its plain form at
+    the benchmark's two shapes (``LL_*``): the leave-one-out column in
+    ``results["loglik"]``, the assignment call under ``assign_*`` keys."""
+    import torch
+
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.ops.loglik import (
+        _resident_blocks,
+        _selected_sums,
+        loglik_geometry,
+        loglik_sums,
+    )
+
+    m = LL_M
+    sw = torch.ones(m, device=dev)
+    f64 = torch.float64
+
+    def _twin(*args):
+        return _selected_sums(*args, f64, kernel=False)
+
+    def case(n, bank, col):
+        c, ks = bank.shape[0], col.shape[1]
+        g0, g1 = random_gls(m, n, gen, dev)
+        args = (g0, g1, bank, col, sw)
+        got = loglik_sums(*args, 1, f64)[:, :, 0]
+        want = _twin(*args)
+        err = float(((got - want).abs() / want.abs()).max())
+        if err > LL_SUM_RTOL:
+            raise AssertionError(f"loglik: sums differ from the plain "
+                                 f"form's by {err} (relative)")
+        rows, width, tile, _, smem, staged = loglik_geometry(n, ks, c, 1)
+        threads = rows * width
+        return dict(
+            **bound(15 * m * n * ks, 4 * (2 * m * n + c * m + m) + 8 * n * ks),
+            max_abs_err=err,
+            ms=time_ms(lambda: loglik_sums(*args, 1, f64), 10),
+            plain_ms=time_ms(lambda: _twin(*args), 2),
+            occupancy="{}x{}threads ({} blocks resident)".format(
+                _kernels.occupancy("loglik", dev, threads, smem, True),
+                threads, _resident_blocks(dev, threads, smem, True)),
+            shape=f"M={m} N={n} Ks={ks} C={c} tile={tile} smem={smem} "
+                  f"bank_staged={staged}")
+
+    bank = 0.05 + 0.9 * torch.rand((LL_LOO_POP + 1, m), generator=gen,
+                                   device=dev)
+    i = torch.arange(LL_LOO_N, device=dev)
+    col = torch.where(i < LL_LOO_FIRST, LL_LOO_POP,
+                      (i - LL_LOO_FIRST).clamp(max=LL_LOO_POP - 1))
+    results["loglik"].update(case(LL_LOO_N, bank,
+                                  col.to(torch.int32)[:, None].contiguous()))
+    bank = 0.05 + 0.9 * torch.rand((LL_ASSIGN_K, m), generator=gen,
+                                   device=dev)
+    col = torch.arange(LL_ASSIGN_K, dtype=torch.int32,
+                       device=dev).repeat(LL_ASSIGN_N, 1)
+    results["loglik"].update(
+        {f"assign_{k}": v
+         for k, v in case(LL_ASSIGN_N, bank, col).items()})
+    a = results["loglik"]
+    print(f"[phase 3 loglik assign] shape=({a['assign_shape']}) "
+          f"ms={a['assign_ms']:.4f} bound_ms={a['assign_bound_ms']:.4f} "
+          f"bound_by={a['assign_bound_by']} share_of_bound="
+          f"{a['assign_bound_ms'] / a['assign_ms']:.4f} "
+          f"plain_ms={a['assign_plain_ms']:.3f} "
+          f"occupancy={a['assign_occupancy']}", flush=True)
 
 
 def zscore_kernels_vs_twins(dev, gen, results):
@@ -1351,9 +1431,9 @@ def entry_points(dev):
     f_new, ll = module(*args)
     torch.cuda.synchronize()
     counts = dict(_kernels.launches)
-    if counts != {"em_chunk": 1}:
+    if counts != {"em_chunk": 1, "loglik": 1}:
         raise AssertionError(f"11a: entry() launched {counts}, wanted "
-                             "em_chunk once")
+                             "em_chunk and loglik once each")
     cpu_module, cpu_args = entry("cpu")
     f_cpu, ll_cpu = cpu_module(*cpu_args)
     if not torch.equal(f_new.cpu(), f_cpu):
@@ -1362,6 +1442,7 @@ def entry_points(dev):
     torch.testing.assert_close(ll.cpu(), ll_cpu, rtol=LL_RTOL, atol=LL_ATOL)
     phase("11a entry", t0, device=str(args[0].device),
           shape="M=1024,N=64,K=4", em_chunk_launches=counts["em_chunk"],
+          loglik_launches=counts["loglik"],
           f_new="bit_equal_to_cpu",
           ll_max_abs_err=float((ll.cpu() - ll_cpu).abs().max()))
 
@@ -1409,7 +1490,7 @@ def entry_points(dev):
                              f"{want_backend}")
     rank0 = {key[len("launches_"):]: int(v) for key, v in got.items()
              if key.startswith("launches_")}
-    for name in ("probe", "em_chunk", "loo_chunk", "zloo_chunk"):
+    for name in ("probe", "em_chunk", "loo_chunk", "zloo_chunk", "loglik"):
         if not rank0.get(name):
             raise AssertionError(f"11c: rank 0 never launched {name}")
     phase("11c dryrun-multichip", t0, ranks=world, backend=want_backend,

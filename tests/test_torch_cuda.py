@@ -11,8 +11,10 @@ Tolerances: the kernels round op for op like the twins (-fmad=false, IEEE
 division, members summed in the same order: ``em_chunk``'s twin sums
 lane-strided partial sums and a butterfly as its kernel does), so ``ft`` agrees to atol 1e-6
 and ``sq`` -- summed over sites in another order (warp shuffles, blocks) --
-to rtol 1e-5.  The analyses without a kernel (assignment log-likelihoods,
-Ne) are held to the CPU at the tolerances of tests/test_torch_assign.py and
+to rtol 1e-5.  The ``loglik`` kernel forms each float32 term as its plain
+form does, bit for bit, and sums them in another order: float64 sums agree
+to 1e-12.  The analyses (assignment log-likelihoods, Ne) are held to the
+CPU at the tolerances of tests/test_torch_assign.py and
 tests/test_torch_ne.py; a streamed cohort is bit-identical to an in-memory
 one on the card too.
 """
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from wgsassign_tpu_torch import _kernels
+from wgsassign_tpu_torch.ops import loglik as ll_ops
 from wgsassign_tpu_torch.ops.em_chunk import (
     em_chunk,
     em_chunk_geometry,
@@ -183,6 +186,20 @@ def test_wrapper_rejects_bad_operands(cuda):
              np.full(2, 0.25, np.float32), np.full(2, 4, np.float32))]
     with pytest.raises(ValueError, match="pop_index has dtype"):
         em_chunk(*args, 4)
+    g0d, g1d, bank, col, sw = _loglik_operands(cuda, 64, 8, 3, 2, 0, 5)
+    f64 = torch.float64
+    for bad, match in (
+            ((g0d.double(), g1d, bank, col, sw, 1, f64), "g0 has dtype"),
+            ((g0d, g1d, bank, col.long(), sw, 1, f64), "col_idx has dtype"),
+            ((g0d, g1d.t().contiguous().t(), bank, col, sw, 1, f64),
+             "g1 must be contiguous"),
+            ((g0d, g1d, bank[:, :60], col, sw, 1, f64),
+             "af_bank_t has shape"),
+            ((g0d, g1d, bank, col, sw.cpu(), 1, f64), "site_weight is on"),
+            ((g0d, g1d, bank, col, sw, 3, f64), "multiple of num_partitions"),
+            ((g0d, g1d, bank, col, sw, 1, torch.float16), "sums in")):
+        with pytest.raises(ValueError, match=match):
+            ll_ops.loglik_sums(*bad)
 
 
 def test_fused_ems_kernel_vs_twin(cuda):
@@ -452,6 +469,135 @@ def test_assignment_loglikelihoods_card_vs_cpu(cuda, p, f64_sums):
     np.testing.assert_array_equal(ll_g.argmax(1), ll_w.argmax(1))
 
 
+def _loglik_operands(dev, m, n, c, ks, pad, seed):
+    """GLs with the padding pattern (1, 0) on the last ``pad`` sites and on
+    ~2% of the other cells, a ``[c, m]`` bank with ~20% of its values at
+    the clamp edges (the EM bounds, a population of 30's clamp, the PAD
+    0.5), and random bank rows per pair; all on ``dev``."""
+    rng = np.random.default_rng(seed)
+    g0, g1 = _gls(m, n, seed)
+    g0[m - pad:], g1[m - pad:] = 1.0, 0.0
+    cells = rng.integers(0, m * n, size=max(1, m * n // 50))
+    g0.reshape(-1)[cells], g1.reshape(-1)[cells] = 1.0, 0.0
+    bank = rng.uniform(0.02, 0.98, size=(c, m)).astype(np.float32)
+    edges = np.float32([1e-7, 1.0 - 1e-7, 1.0 / 60.0, 1.0 - 1.0 / 60.0, 0.5])
+    at_edge = rng.random((c, m)) < 0.2
+    bank[at_edge] = rng.choice(edges, size=int(at_edge.sum()))
+    col = rng.integers(0, c, size=(n, ks)).astype(np.int32)
+    sw = np.ones(m, np.float32)
+    sw[m - pad:] = 0.0
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (g0, g1, bank, col, sw))
+
+
+def _loglik_pair(args, p, kernel):
+    """``(ll [N, Ks], parts [N, P, Ks])`` float64 by the kernel or by the
+    plain form on the card."""
+    return ll_ops.assign_loglik_selected_partitioned_f64(*args, p,
+                                                         kernel=kernel)
+
+
+@pytest.mark.parametrize("m,n,c,ks,p", [
+    (469, 180, 50, 1, 7),    # M % 4 != 0: bank rows staged by 4-byte copies
+    (448, 34, 5, 5, 7),      # 16-byte copies; one partial tile
+    (448, 180, 1000, 1, 4),  # above the staging bound: unstaged
+    (450, 180, 5, 5, 1),     # two blocks of pairs side by side
+    (450, 34, 5, 5, 1),
+])
+def test_loglik_terms_bit_equal_twin(cuda, m, n, c, ks, p):
+    """One site of each partition carries weight 1, the others 0, so each
+    float64 output is one float32 term widened: the kernel's terms equal
+    the plain form's bit for bit, the padding pattern and the AF clamp
+    edges included."""
+    g0, g1, bank, col, _ = _loglik_operands(cuda, m, n, c, ks, 0, 30 + ks)
+    rng = np.random.default_rng(31)
+    for _ in range(3):
+        sw = np.zeros(m, np.float32)
+        sw[rng.integers(0, m // p, size=p) * p + np.arange(p)] = 1.0
+        args = (g0, g1, bank, col, torch.from_numpy(sw).to(cuda))
+        before = _kernels.launches["loglik"]
+        _, got = _loglik_pair(args, p, True)
+        assert _kernels.launches["loglik"] == before + 1
+        _, want = _loglik_pair(args, p, False)
+        assert _kernels.launches["loglik"] == before + 1
+        assert np.isfinite(want).all()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,ks", [(34, 5), (180, 1), (180, 5)])
+@pytest.mark.parametrize("p", [1, 4, 7])
+def test_loglik_sums_match_twin(cuda, n, ks, p):
+    """Float64 sums over 2,100 sites (not a multiple of any tile), 14 of
+    them padding, agree with the plain form's to 1e-12: the same terms,
+    added in another order."""
+    m = 2100
+    for c in (5, 50, 1000):  # 1000 rows: above the staging bound
+        args = _loglik_operands(cuda, m, n, c, ks, 14, 40 + c)
+        assert ll_ops.loglik_geometry(n, ks, c, p)[5] == (c < 1000)
+        for got, want in zip(_loglik_pair(args, p, True),
+                             _loglik_pair(args, p, False)):
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_loglik_sums_are_deterministic(cuda, dtype):
+    """Two launches on equal inputs give bit-identical sums."""
+    args = _loglik_operands(cuda, 30001, 180, 50, 1, 7, 50)
+    first = ll_ops.loglik_sums(*args, 1, dtype)
+    for _ in range(3):
+        assert torch.equal(ll_ops.loglik_sums(*args, 1, dtype), first)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_loglik_f32_sums_match_twin(cuda, p):
+    """``--f32_sums``: float32 sums in the kernel's order against the plain
+    form's, at the tolerances of the analyses' card-vs-CPU tests."""
+    args = _loglik_operands(cuda, 4000, 40, 3, 3, 0, 60)
+    got = ll_ops.assign_loglik_selected_partitioned(*args, p)
+    want = ll_ops.assign_loglik_selected_partitioned(*args, p, kernel=False)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=2e-3)
+
+
+def test_analyses_launch_loglik_on_the_card(cuda):
+    """``leave_one_out`` launches ``loglik`` once a population and
+    ``assignment_loglikelihoods`` once a call, by the launch count and, while
+    a profiler records, by the counter ``loglik.launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
+    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.loo import leave_one_out
+    from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
+    from wgsassign_tpu_torch.obs.profiling import counters
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle = _beagle(3000, 30, 25)
+    popmap = population_map(beagle.sample_names,
+                            [f"pop{i % 3}" for i in range(30)])
+    cohort = to_device(beagle, make_runtime(cuda))
+    ref = estimate_reference_af(beagle, popmap, cohort=cohort)
+
+    def launched(fn):
+        before = (_kernels.launches["loglik"],
+                  counters().get("loglik.launches", 0))
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+        return (_kernels.launches["loglik"] - before[0],
+                counters().get("loglik.launches", 0) - before[1])
+
+    assert launched(lambda: leave_one_out(
+        beagle, ref.af, popmap, cohort=cohort,
+        af_t_dev=ref.af_t_dev)) == (3, 3)
+    assert launched(lambda: assignment_loglikelihoods(
+        beagle, ref.af, cohort=cohort)) == (1, 1)
+    assert launched(lambda: assignment_loglikelihoods(
+        beagle, ref.af, cohort=cohort, num_partitions=4,
+        f64_sums=False)) == (1, 1)
+
+
 def test_effective_sample_sizes_card_vs_cpu(cuda):
     from wgsassign_tpu_torch.io.ids import population_map
     from wgsassign_tpu_torch.models.ne import effective_sample_sizes
@@ -576,7 +722,8 @@ def test_reference_z_of_909_members_runs_the_kernel_on_the_card(cuda):
 
 def test_no_pallas_runs_no_kernel_on_the_card(cuda):
     """``use_kernels=False`` (--no_pallas): the plain ops on the card, no
-    EM kernel launched, equal iterations and AF to the kernels' run."""
+    EM kernel and no ``loglik`` launched, equal iterations and AF to the
+    kernels' run."""
     from wgsassign_tpu_torch.io.ids import population_map
     from wgsassign_tpu_torch.models.common import to_device
     from wgsassign_tpu_torch.models.loo import leave_one_out
@@ -596,7 +743,9 @@ def test_no_pallas_runs_no_kernel_on_the_card(cuda):
         runs[use_kernels] = (ref, loo, dict(_kernels.launches))
     plain, fused = runs[False], runs[None]
     assert not plain[2].get("em_chunk") and not plain[2].get("loo_chunk")
+    assert not plain[2].get("loglik")
     assert fused[2]["em_chunk"] and fused[2]["loo_chunk"]
+    assert fused[2]["loglik"] == 3
     assert plain[0].engine == "plain" and set(plain[1].engines) == {"plain"}
     np.testing.assert_array_equal(plain[0].iters, fused[0].iters)
     np.testing.assert_array_equal(plain[1].iters, fused[1].iters)

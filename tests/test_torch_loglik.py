@@ -13,6 +13,7 @@ import torch
 torch.set_num_threads(1)
 
 from wgsassign_tpu.ops import loglik as jax_ll
+from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.models.common import from_jax_arrays
 from wgsassign_tpu_torch.ops import loglik
 
@@ -95,3 +96,76 @@ def test_partitions_need_a_padded_site_axis():
     with pytest.raises(ValueError, match="multiple of num_partitions"):
         loglik.assign_loglik_selected_partitioned_f64(
             *from_jax_arrays(g0, g1, bank, col_idx, sw, device="cpu"), 4)
+
+
+@pytest.mark.parametrize("n,ks,c,p,want", [
+    # the benchmark's shapes: leave-one-out (a mini-bank of 49 + 1 rows)
+    # and assignment (34 individuals against K = 5 columns)
+    (180, 1, 50, 1, (4, 180, 32, 180, 8 * (2 * 32 * 180 + 32 + 50 * 36),
+                     True)),
+    (34, 5, 5, 1, (2, 170, 64, 34, 8 * (2 * 64 * 34 + 64 + 5 * 68), True)),
+    (1, 1, 1, 1, (64, 1, 64, 1, 8 * (2 * 64 + 64 + 68), True)),
+    # a bank above the staging bound: no room beside a tile of 16 sites
+    (180, 1, 2000, 1, (4, 180, 40, 180, 8 * (2 * 40 * 180 + 40), False)),
+    # more pairs than a block takes: 48 pairs (11 individuals) a block
+    (180, 5, 50, 16, (16, 48, 64, 11, 8 * (2 * 64 * 11 + 64 + 50 * 68),
+                      True)),
+    (180, 1, 50, 7, (7, 109, 28, 110, 8 * (2 * 28 * 110 + 28 + 50 * 32),
+                     True)),
+    (2000, 5, 5, 1, (1, 512, 64, 104, 8 * (2 * 64 * 104 + 64 + 5 * 68),
+                     True)),
+])
+def test_loglik_geometry(n, ks, c, p, want):
+    """The kernel's launch shape: rows and tiles multiples of the partition
+    count, at most 768 threads, tiles of whole 16-byte copies, the two
+    staged buffers within shared memory (within the staging budget where a
+    tile of 16 sites leaves room for the bank rows), and every block's
+    individuals within the buffers' ``nb``."""
+    got = loglik.loglik_geometry(n, ks, c, p)
+    assert got == want
+    rows, width, tile, nb, smem, staged = got
+    assert rows % p == 0 and rows * width <= loglik.LOGLIK_MAX_THREADS
+    assert width <= n * ks and tile % 4 == 0 and tile % p == 0
+    assert smem <= (loglik.LOGLIK_STAGE_BYTES if staged or p == 1
+                    else _kernels.SMEM_LIMIT)
+    q = n * ks
+    for lo in range(0, q, width):
+        first, last = lo // ks, (min(lo + width, q) - 1) // ks
+        assert last - first + 1 <= nb
+
+
+def test_loglik_staging_bound_at_the_loo_shape():
+    """At 180 individuals and one partition the bank rows of a population of
+    436 (437 rows) are staged beside a tile of 16 sites; a larger bank is
+    read from global memory, beside a longer tile."""
+    assert loglik.loglik_geometry(180, 1, 437, 1)[2:4] == (16, 180)
+    assert loglik.loglik_geometry(180, 1, 437, 1)[5]
+    assert loglik.loglik_geometry(180, 1, 438, 1)[2] == 40
+    assert not loglik.loglik_geometry(180, 1, 438, 1)[5]
+
+
+@pytest.mark.parametrize("args", [(0, 1, 5, 1), (4, 1, 0, 1),
+                                  (4, 1, 5, 0), (4, 1, 5, 1025)])
+def test_loglik_geometry_rejects_empty_shapes(args):
+    with pytest.raises(ValueError, match="no launch"):
+        loglik.loglik_geometry(*args)
+
+
+def test_loglik_kernel_wrapper_refuses_cpu_tensors():
+    g0, g1, bank, col_idx, sw = from_jax_arrays(*_inputs(), device="cpu")
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        loglik.loglik_sums(g0, g1, bank, col_idx, sw, 1, torch.float64)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_cpu_tensors_take_the_plain_form(p):
+    """On the CPU ``kernel=True`` runs the blocked form, bit for bit, and
+    launches nothing."""
+    args = from_jax_arrays(*_inputs(), device="cpu")
+    before = dict(_kernels.launches)
+    got = loglik.assign_loglik_selected_partitioned_f64(*args, p)
+    want = loglik.assign_loglik_selected_partitioned_f64(*args, p,
+                                                         kernel=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert dict(_kernels.launches) == before

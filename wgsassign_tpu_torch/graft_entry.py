@@ -74,7 +74,8 @@ class ForwardStep(nn.Module):
     The update is one :func:`em_chunk` at T=1 with every limit 1 (the
     ``em_chunk`` kernel on a card, its twin on the CPU) in the canonical
     weight form of the JAX package's ``em_weights``; ``chunk_op`` replaces
-    it where a check compares the kernel with its twin on the card.
+    it where a check compares the kernel with its twin on the card.  The
+    panel is :func:`assign_loglik` (the ``loglik`` kernel on a card).
     """
 
     def __init__(self, chunk_op=em_chunk):

@@ -2,7 +2,8 @@
 
 Counterpart of ``wgsassign_tpu/models/assign.py`` (reference
 glassy.assignLL, glassy.py:18-44): the full ``[N, K]`` matrix in one device
-pass, blocked over individuals (``ops/loglik.py``).
+pass (``ops/loglik.py``: the ``loglik`` kernel on a GPU, the plain blocked
+form on the CPU and under ``--no_pallas``).
 """
 
 from __future__ import annotations
@@ -61,19 +62,20 @@ def assignment_loglikelihoods(
     if rt.debug_checks:
         check_loglik_inputs(*args, reduce=reduce)
     count("host_syncs")
+    kw = dict(reduce=reduce, kernel=rt.use_kernels is not False)
     with span("wgsa.loglik.pass"):
         if num_partitions <= 1:
             if f64_sums:
-                ll = assign_loglik_f64(*args, reduce=reduce)
+                ll = assign_loglik_f64(*args, **kw)
             else:
-                ll = assign_loglik(*args, reduce=reduce).cpu().numpy()
+                ll = assign_loglik(*args, **kw).cpu().numpy()
             return ll.astype(np.float32)
         if f64_sums:
             parts = assign_loglik_partitioned_f64(*args, num_partitions,
-                                                  reduce=reduce)
+                                                  **kw)
         else:
             parts = assign_loglik_partitioned(*args, num_partitions,
-                                              reduce=reduce).cpu().numpy()
+                                              **kw).cpu().numpy()
     ll = parts.sum(axis=0).astype(np.float32)  # [N, K]
     n, k = ll.shape
     parts_nk = np.transpose(parts.astype(np.float32), (1, 0, 2)).reshape(

@@ -14,14 +14,16 @@ reproduced exactly, batched:
   * the quirky AF selection is a static ``[N, K]`` row-index table, and
     column j of it only references population j's LOO rows or the full-data
     column j, so LL column j is evaluated right after population j's EM
-    against an ``[n_p + 1, M]`` mini-bank; no ``[N + K, M]`` bank is built.
+    against an ``[n_p + 1, M]`` mini-bank (the ``loglik`` kernel on a GPU);
+    no ``[N + K, M]`` bank is built.
 
 Everything stays on the device: member panels are gathers of the cohort,
 and the full-data AF panel is handed over from the reference-AF step.
 
 Under ``--no_pallas`` every population runs the plain
 :func:`wgsassign_tpu_torch.ops.emmaf.em_maf_loo_group` on the same device
-instead; ``LooResult.engines`` says which ran.  Nothing else leaves the
+instead, and the likelihood pass its plain blocked form;
+``LooResult.engines`` says which EM ran.  Nothing else leaves the
 chunked EM: the ``loo_chunk`` kernel takes a population of any size (one
 whose member tile does not fit in shared memory is read from global
 memory), and a kernel that fails to build, load or launch raises.
@@ -222,7 +224,8 @@ def leave_one_out(
                 ).astype(np.int32).reshape(n, 1)).to(device)
             with span("wgsa.loglik.selected"):
                 ll[:, j], parts_nk[:, :, j] = _column_loglik(
-                    src, mini_bank, col_j, num_partitions, f64_sums, reduce)
+                    src, mini_bank, col_j, num_partitions, f64_sums, reduce,
+                    kernel=rt.use_kernels is not False)
             iters[members] = it_p
             converged[members] = conv_p
             if verbose:
@@ -259,24 +262,26 @@ def _mini_bank(f_p, af_t, j, min_val):
 
 
 def _column_loglik(src, mini_bank, col_j, num_partitions, f64_sums,
-                   reduce):
+                   reduce, kernel=True):
     """One population's LL column against its mini-bank, fetched to the
-    host: ``(ll [N], parts [N, P])`` (P = 1 without partitions)."""
+    host: ``(ll [N], parts [N, P])`` (P = 1 without partitions).
+    ``kernel``: the ``loglik`` kernel on a GPU (False: the plain form)."""
     args = (src.g0, src.g1, mini_bank, col_j, src.site_weight)
+    kw = dict(reduce=reduce, kernel=kernel)
     count("host_syncs")
     if num_partitions <= 1:
         if f64_sums:
-            ll_j = assign_loglik_selected_f64(*args, reduce=reduce)
+            ll_j = assign_loglik_selected_f64(*args, **kw)
         else:
-            ll_j = assign_loglik_selected(*args, reduce=reduce).cpu().numpy()
+            ll_j = assign_loglik_selected(*args, **kw).cpu().numpy()
         ll_j = np.asarray(ll_j)[:, 0]
         return ll_j, ll_j[:, None]
     if f64_sums:
         ll_j, parts_j = assign_loglik_selected_partitioned_f64(
-            *args, num_partitions, reduce=reduce)
+            *args, num_partitions, **kw)
     else:
         ll_jd, parts_jd = assign_loglik_selected_partitioned(
-            *args, num_partitions, reduce=reduce)
+            *args, num_partitions, **kw)
         ll_j, parts_j = ll_jd.cpu().numpy(), parts_jd.cpu().numpy()
     return np.asarray(ll_j)[:, 0], np.asarray(parts_j)[:, :, 0]
 

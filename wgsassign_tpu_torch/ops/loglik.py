@@ -19,6 +19,13 @@ leave-one-out path's in-place-AF semantics.  The unselected forms
 the JAX op fuses the ``[M, N, K]`` product into the site reduction, a
 plain torch broadcast would materialise it (3.6 GB at 1M x 180 x 5).
 
+On a GPU the sums are the hand-written kernel ``csrc/loglik.cu``
+(:func:`loglik_sums`): one read of the GL planes, each float32 term formed
+in registers in the order :func:`site_like` writes it, then widened and
+added.  The blocked form is its plain twin: it runs for CPU tensors, and on
+the card where the caller passes ``kernel=False`` (the runtime's
+``--no_pallas``).
+
 With several ranks each rank sums its window of the site axis and ``reduce``
 (``Runtime.all_reduce_sum``) adds the ranks' ``[N, K]`` or ``[N, K, P]``
 sums, in the dtype of the sum: float64, or float32 under ``--f32_sums``.
@@ -29,12 +36,33 @@ ranks.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
+
+from wgsassign_tpu_torch import _kernels
+from wgsassign_tpu_torch.obs.profiling import count
 
 # float32 elements per temporary of the [individuals, K, M] per-site pass:
 # 2**28 is 1 GiB, a few of which coexist -- well inside an 80 GB card.
 BLOCK_ELEMENTS = 1 << 28
+
+# The kernel's block (csrc/loglik.cu): rows x width threads, width pairs
+# (individual, AF column) a row, rows a multiple of the partition count.  A
+# block walks tiles of sites; each tile's GL rows, weights and (while they
+# fit) AF bank rows are staged in shared memory, bank rows LOGLIK_ROW_PAD
+# floats apart beyond the tile, double-buffered, in at most
+# LOGLIK_STAGE_BYTES (two blocks of 720 threads an SM at the benchmark's
+# 180 individuals) where the smallest tile allows.
+LOGLIK_MAX_THREADS = 768  # csrc/loglik.cu: __launch_bounds__(768, 2)
+LOGLIK_THREADS = 256
+LOGLIK_MAX_WIDTH = 512
+LOGLIK_MAX_TILE = 64
+LOGLIK_MIN_STAGED_TILE = 16
+LOGLIK_ROW_PAD = 4
+LOGLIK_STAGE_BYTES = _kernels.SMEM_LIMIT // 2
 
 
 def site_like(g0, g1, a):
@@ -69,18 +97,143 @@ def _selected_site_ll(g0, g1, af_bank_t, col_idx, site_weight):
         yield rows, torch.log(like) * site_weight
 
 
+def loglik_geometry(n: int, ks: int, c: int, p: int) -> tuple:
+    """``(rows, width, tile, nb, smem_bytes, bank_staged)`` of the kernel's
+    launch for ``n`` individuals, ``ks`` AF columns each, a bank of ``c``
+    rows and ``p`` partitions.
+
+    A block row holds ``width`` consecutive pairs (all ``n * ks`` where
+    they fit, else ``min(LOGLIK_MAX_WIDTH, LOGLIK_MAX_THREADS // p)``, and
+    more blocks side by side take the rest); its pairs span at most ``nb``
+    individuals.  ``tile`` is the most sites, a multiple of 4 and of ``p``
+    and at most LOGLIK_MAX_TILE, whose two staged buffers (GL rows of
+    ``nb`` individuals, weights, and the ``[c, tile]`` bank rows) take at
+    most LOGLIK_STAGE_BYTES; where no tile of LOGLIK_MIN_STAGED_TILE sites
+    or more leaves room for the bank rows (a large population's
+    mini-bank), ``bank_staged`` is False and the kernel reads them from
+    global memory.  ``rows`` is the multiple of ``p`` that keeps the most lanes busy, in
+    whole warps and over the tile's sites (``rows`` rows take sites ``r,
+    r + rows, ...``), the nearest to LOGLIK_THREADS threads on a tie; a
+    row's sites then all lie in one partition."""
+    q = n * ks
+    if q < 1 or c < 1 or not 1 <= p <= LOGLIK_MAX_THREADS:
+        raise ValueError(f"loglik: no launch for n={n}, ks={ks}, c={c}, "
+                         f"p={p}")
+    width = min(q, LOGLIK_MAX_WIDTH, LOGLIK_MAX_THREADS // p)
+    nb = min(n, (width - 1) // ks + 2)
+    unit = 4 * p // math.gcd(4, p)
+
+    def smem(tile, staged):
+        bank = c * (tile + LOGLIK_ROW_PAD) if staged else 0
+        return 2 * 4 * (2 * tile * nb + tile + bank)
+
+    for staged in (True, False):
+        tile = max(unit, LOGLIK_MAX_TILE // unit * unit)
+        least = -(-LOGLIK_MIN_STAGED_TILE // unit) * unit if staged else unit
+        while tile > least and smem(tile, staged) > LOGLIK_STAGE_BYTES:
+            tile -= unit
+        if smem(tile, staged) <= LOGLIK_STAGE_BYTES:
+            break
+    if smem(tile, staged) > _kernels.SMEM_LIMIT:
+        raise ValueError(f"loglik: a tile of {tile} sites of {nb} "
+                         "individuals does not fit in shared memory")
+
+    def score(rows):
+        threads = rows * width
+        lanes = threads / (32 * -(-threads // 32))
+        sites = tile / (rows * -(-tile // rows))
+        return lanes * sites, -abs(threads - LOGLIK_THREADS)
+
+    rows = max(range(p, LOGLIK_MAX_THREADS // width + 1, p), key=score)
+    return rows, width, tile, nb, smem(tile, staged), staged
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: torch.device, threads: int, smem: int,
+                     f64: bool) -> int:
+    """Blocks of this launch shape the whole card holds at once."""
+    per_sm = _kernels.occupancy("loglik", device, threads, smem, f64)
+    if per_sm < 1:
+        raise RuntimeError(f"loglik: a block of {threads} threads and "
+                           f"{smem} bytes of shared memory cannot run")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * per_sm
+
+
+def loglik_sums(g0, g1, af_bank_t, col_idx, site_weight,
+                num_partitions: int, dtype):
+    """``[N, Ks, P]`` selected partition sums by the ``loglik`` kernel, in
+    ``dtype`` (float64, or float32 for ``--f32_sums``): the sums of
+    :func:`_selected_partition_sums` over the same float32 terms, added in
+    the kernel's fixed order.
+
+    Args (CUDA tensors, contiguous):
+      g0, g1: float32 ``[M, N]``.
+      af_bank_t: float32 ``[C, M]``.
+      col_idx: int32 ``[N, Ks]``, each in ``[0, C)`` (a pair whose row is
+        outside sums to NaN).
+      site_weight: float32 ``[M]``.
+      num_partitions: P; partition p holds the sites with ``s % P == p``,
+        and ``M`` must be a multiple of P.
+    """
+    dev = g0.device
+    if dev.type != "cuda":
+        raise ValueError(f"loglik: no kernel for device {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"loglik: sums in {dtype}, expected float32 or "
+                         "float64")
+    m, n = g0.shape
+    c = af_bank_t.shape[0]
+    ks = col_idx.shape[1]
+    p = num_partitions
+    for name, t, want_dtype, shape in (
+            ("g0", g0, torch.float32, (m, n)),
+            ("g1", g1, torch.float32, (m, n)),
+            ("af_bank_t", af_bank_t, torch.float32, (c, m)),
+            ("col_idx", col_idx, torch.int32, (n, ks)),
+            ("site_weight", site_weight, torch.float32, (m,))):
+        _kernels.check_operand(name, t, dev, want_dtype, shape)
+    if p < 1 or m % p != 0:
+        raise ValueError(f"site axis ({m}) must be padded to a multiple of "
+                         f"num_partitions ({p})")
+    if m == 0 or n * ks == 0:
+        return torch.zeros((n, ks, p), dtype=dtype, device=dev)
+    rows, width, tile, nb, smem, staged = loglik_geometry(n, ks, c, p)
+    f64 = dtype == torch.float64
+    grid_y = -(-(n * ks) // width)
+    grid_x = min(-(-m // tile),
+                 max(1, _resident_blocks(dev, rows * width, smem, f64)
+                     // grid_y))
+    aligned = (int(all(t.data_ptr() % 16 == 0 for t in (g0, g1, site_weight)))
+               | 2 * int(_kernels.rows_aligned(m, af_bank_t)))
+    part = torch.empty((grid_x, rows, n * ks), dtype=dtype, device=dev)
+    out = torch.empty((n, ks, p), dtype=dtype, device=dev)
+    _kernels.launch(
+        "loglik", dev, g0.data_ptr(), g1.data_ptr(), af_bank_t.data_ptr(),
+        col_idx.data_ptr(), site_weight.data_ptr(), part.data_ptr(),
+        out.data_ptr(), m, n, ks, c, p, rows, width, tile, nb, grid_x,
+        grid_y, smem, int(staged), aligned, int(f64),
+    )
+    count("loglik.launches")
+    return out
+
+
 def _selected_sums(g0, g1, af_bank_t, col_idx, site_weight, dtype,
-                   reduce=None):
-    n, k = col_idx.shape
-    out = torch.empty((n, k), dtype=dtype, device=g0.device)
-    for rows, ll in _selected_site_ll(g0, g1, af_bank_t, col_idx,
-                                      site_weight):
-        out[rows] = torch.sum(ll, dim=2, dtype=dtype)
+                   reduce=None, kernel=True):
+    if kernel and g0.device.type == "cuda":
+        out = loglik_sums(g0, g1, af_bank_t, col_idx, site_weight, 1,
+                          dtype)[:, :, 0]
+    else:
+        n, k = col_idx.shape
+        out = torch.empty((n, k), dtype=dtype, device=g0.device)
+        for rows, ll in _selected_site_ll(g0, g1, af_bank_t, col_idx,
+                                          site_weight):
+            out[rows] = torch.sum(ll, dim=2, dtype=dtype)
     return out if reduce is None else reduce(out)
 
 
 def assign_loglik_selected(g0, g1, af_bank_t, col_idx, site_weight,
-                           reduce=None):
+                           reduce=None, kernel=True):
     """``[N, K]`` float32 bank-selected log-likelihoods, float32 sums.
 
     Args:
@@ -88,21 +241,26 @@ def assign_loglik_selected(g0, g1, af_bank_t, col_idx, site_weight,
       af_bank_t: float32 ``[C, M]`` bank of AF rows, site-minor.
       col_idx: integer ``[N, K]`` -- bank row used for pair (i, k).
       site_weight: float32 ``[M]``.
+      kernel: False runs the plain blocked form on a GPU too
+        (``--no_pallas``); CPU tensors always take it.  The kernel wants
+        contiguous operands and an int32 ``col_idx``.
     """
     return _selected_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                          torch.float32, reduce)
+                          torch.float32, reduce, kernel)
 
 
 def assign_loglik_selected_f64(g0, g1, af_bank_t, col_idx,
-                               site_weight, reduce=None) -> np.ndarray:
+                               site_weight, reduce=None,
+                               kernel=True) -> np.ndarray:
     """``[N, K]`` bank-selected log-likelihoods with float64 site sums
     (the LOO path's sum, reference glassy.py:101).  Returns np.float64."""
     return _selected_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                          torch.float64, reduce).cpu().numpy()
+                          torch.float64, reduce, kernel).cpu().numpy()
 
 
 def _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                             num_partitions: int, dtype, reduce=None):
+                             num_partitions: int, dtype, reduce=None,
+                             kernel=True):
     """``[N, K, P]`` partition sums; partition p holds the sites with
     ``s % P == p`` of the (padded) site axis."""
     m = g0.shape[0]
@@ -112,31 +270,36 @@ def _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
         raise ValueError(
             f"site axis ({m}) must be padded to a multiple of "
             f"num_partitions ({p})")
-    out = torch.empty((n, k, p), dtype=dtype, device=g0.device)
-    for rows, ll in _selected_site_ll(g0, g1, af_bank_t, col_idx,
-                                      site_weight):
-        out[rows] = torch.sum(ll.reshape(ll.shape[0], k, m // p, p), dim=2,
-                              dtype=dtype)
+    if kernel and g0.device.type == "cuda":
+        out = loglik_sums(g0, g1, af_bank_t, col_idx, site_weight, p, dtype)
+    else:
+        out = torch.empty((n, k, p), dtype=dtype, device=g0.device)
+        for rows, ll in _selected_site_ll(g0, g1, af_bank_t, col_idx,
+                                          site_weight):
+            out[rows] = torch.sum(ll.reshape(ll.shape[0], k, m // p, p),
+                                  dim=2, dtype=dtype)
     return out if reduce is None else reduce(out)
 
 
 def assign_loglik_selected_partitioned(g0, g1, af_bank_t, col_idx,
                                        site_weight, num_partitions: int,
-                                       reduce=None):
+                                       reduce=None, kernel=True):
     """Partitioned form of :func:`assign_loglik_selected`, float32 sums.
     Returns ``(ll [N, K], parts [N, P, K])`` as float32 tensors."""
     parts = _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                                     num_partitions, torch.float32, reduce)
+                                     num_partitions, torch.float32, reduce,
+                                     kernel)
     return parts.sum(dim=2), parts.permute(0, 2, 1).contiguous()
 
 
 def assign_loglik_selected_partitioned_f64(g0, g1, af_bank_t, col_idx,
                                            site_weight, num_partitions: int,
-                                           reduce=None):
+                                           reduce=None, kernel=True):
     """``(ll [N, K], parts [N, P, K])`` with float64 site sums, as NumPy
     float64 arrays; ``ll`` is the sum of the partition sums."""
     parts = _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                                     num_partitions, torch.float64, reduce)
+                                     num_partitions, torch.float64, reduce,
+                                     kernel)
     parts = parts.cpu().numpy()
     return parts.sum(axis=2), np.transpose(parts, (0, 2, 1))
 
@@ -147,11 +310,11 @@ def _identity_columns(n: int, af) -> tuple:
     """``(bank [K, M], col_idx [N, K])`` that make the selected forms
     evaluate every individual against every column of ``af [M, K]``."""
     k = af.shape[1]
-    col_idx = torch.arange(k, device=af.device).expand(n, k)
-    return af.t().contiguous(), col_idx
+    col_idx = torch.arange(k, dtype=torch.int32, device=af.device)
+    return af.t().contiguous(), col_idx.repeat(n, 1)
 
 
-def assign_loglik(g0, g1, af, site_weight, reduce=None):
+def assign_loglik(g0, g1, af, site_weight, reduce=None, kernel=True):
     """Full ``[N, K]`` assignment log-likelihood matrix, float32 sums.
 
     Args:
@@ -159,37 +322,42 @@ def assign_loglik(g0, g1, af, site_weight, reduce=None):
       af: float32 ``[M, K]`` population allele frequencies.
       site_weight: float32 ``[M]`` (0 for padded sites).
 
-    Returns: float32 ``[N, K]`` tensor.
+    Returns: float32 ``[N, K]`` tensor.  ``kernel`` as for
+    :func:`assign_loglik_selected`.
     """
     bank, col_idx = _identity_columns(g0.shape[1], af)
-    return assign_loglik_selected(g0, g1, bank, col_idx, site_weight, reduce)
+    return assign_loglik_selected(g0, g1, bank, col_idx, site_weight, reduce,
+                                  kernel)
 
 
-def assign_loglik_f64(g0, g1, af, site_weight, reduce=None) -> np.ndarray:
+def assign_loglik_f64(g0, g1, af, site_weight, reduce=None,
+                      kernel=True) -> np.ndarray:
     """``[N, K]`` assignment log-likelihoods with float64 site sums
     (reference glassy.py:38).  Returns np.float64."""
     bank, col_idx = _identity_columns(g0.shape[1], af)
     return assign_loglik_selected_f64(g0, g1, bank, col_idx, site_weight,
-                                      reduce)
+                                      reduce, kernel)
 
 
 def assign_loglik_partitioned(g0, g1, af, site_weight, num_partitions: int,
-                              reduce=None):
+                              reduce=None, kernel=True):
     """Per-partition float32 sums ``[P, N, K]``: partition p holds the sites
     with ``s % P == p``.  The (padded) site count must be a multiple of P."""
     bank, col_idx = _identity_columns(g0.shape[1], af)
     parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
-                                     num_partitions, torch.float32, reduce)
+                                     num_partitions, torch.float32, reduce,
+                                     kernel)
     return parts.permute(2, 0, 1)
 
 
 def assign_loglik_partitioned_f64(g0, g1, af, site_weight,
-                                  num_partitions: int,
-                                  reduce=None) -> np.ndarray:
+                                  num_partitions: int, reduce=None,
+                                  kernel=True) -> np.ndarray:
     """Partitioned sums ``[P, N, K]`` with float64 site sums, as NumPy."""
     bank, col_idx = _identity_columns(g0.shape[1], af)
     parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
-                                     num_partitions, torch.float64, reduce)
+                                     num_partitions, torch.float64, reduce,
+                                     kernel)
     return np.transpose(parts.cpu().numpy(), (2, 0, 1))
 
 
