@@ -17,7 +17,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    typical kept fraction, ``zloo_chunk`` with ascending left-out rows and
    ``sites_chunk`` with half its problems at limit 0; for the likelihood
    pass ``loglik``, the benchmark's leave-one-out column and assignment
-   call at 5,000,000 sites);
+   call at 5,000,000 sites; for the z-score tables' two passes
+   ``ztables_bin`` and ``ztables_filter``, the z-score cell's 5,000,000 x
+   180 cohort of uint8 read counts, bit for bit);
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
@@ -158,6 +160,10 @@ KERNELS = {
                     f"{PALLAS}:1068", "6b"),
     "loglik": ("wgsassign_tpu_torch/csrc/loglik.cu",
                "none (wgsassign_tpu/ops/loglik.py is XLA-fused jnp)", "4"),
+    "ztables_bin": ("wgsassign_tpu_torch/csrc/ztables.cu",
+                    "none (host numpy build_combo_tables)", "6a"),
+    "ztables_filter": ("wgsassign_tpu_torch/csrc/ztables.cu",
+                       "none (host numpy build_combo_tables)", "6a"),
 }
 # the likelihood pass at the benchmark's shapes (portbench/configs): a
 # leave-one-out column (a population of 49 at individuals [60, 109), its
@@ -166,6 +172,11 @@ KERNELS = {
 # kernel and of its plain form add the same float32 terms in another order
 LL_M, LL_LOO_N, LL_LOO_POP, LL_LOO_FIRST = 5_000_000, 180, 49, 60
 LL_ASSIGN_N, LL_ASSIGN_K, LL_SUM_RTOL = 34, 5, 1e-12
+# the z-score tables' two passes at the z-score cell's cohort
+# (portbench/configs/wgs180_5m_ad.json): 5,000,000 sites x 180 individuals,
+# uint8 read counts of Poisson(2) depth, capped at 15 reads so the combo
+# tables are W = 16 wide (364 chunks of the site axis a pass)
+ZT_M, ZT_N, ZT_DEPTH, ZT_CAP = 5_000_000, 180, 2.0, 15
 
 
 def paths_kernels(path):
@@ -335,6 +346,82 @@ def kernels_vs_twins(dev, results):
     del g0p, g1p, ftp, f_k, f_t
     zscore_kernels_vs_twins(dev, gen, results)
     loglik_vs_twin(dev, gen, results)
+    ztables_vs_twins(dev, gen, results)
+
+
+def ztables_vs_twins(dev, gen, results):
+    """Phase 3, the two passes of the z-score tables (``ztables_bin``,
+    ``ztables_filter``) against their twins on the card at ``ZT_*``, bit
+    for bit.  Each GL is a function of its read counts, as in the
+    benchmark's cohort, so a chunk's float64 sum of one combo adds equal
+    float32 values and is exact in any order: the twin's ``index_add_``,
+    atomic on the card, gives the kernel's bits.  Each bound counts the
+    pass's bytes: the uint8 counts and the GL planes read once, and its
+    outputs (the partials; the mask and the per-depth counts) written
+    once."""
+    import torch
+
+    from wgsassign_tpu_torch.ops.ztables import (
+        chunk_count,
+        combo_bins,
+        combo_bins_twin,
+        site_filter,
+        site_filter_twin,
+    )
+
+    m, n, w = ZT_M, ZT_N, ZT_CAP + 1
+    g_tab = random_gls(w * w, 1, gen, dev)
+    ad = torch.empty((m, 2 * n), dtype=torch.uint8, device=dev)
+    g0 = torch.empty((m, n), device=dev)
+    g1 = torch.empty((m, n), device=dev)
+    rows = 500_000
+    for lo in range(0, m, rows):
+        hi = min(lo + rows, m)
+        depth = torch.poisson(torch.full((hi - lo, n), ZT_DEPTH, device=dev),
+                              generator=gen).clamp(max=ZT_CAP)
+        minor = torch.binomial(depth, torch.full_like(depth, 0.3),
+                               generator=gen)
+        major = depth - minor
+        ad[lo:hi, 0::2] = major.to(torch.uint8)
+        ad[lo:hi, 1::2] = minor.to(torch.uint8)
+        code = major.long() * w + minor.long()
+        g0[lo:hi] = g_tab[0][code, 0]
+        g1[lo:hi] = g_tab[1][code, 0]
+        del depth, minor, major, code
+    args = (ad, g0, g1, 0, n, m, w)
+    n_chunks = chunk_count(m, n, w)
+    part = combo_bins(*args)
+    if not torch.equal(part, combo_bins_twin(*args)):
+        raise AssertionError("ztables_bin: partials differ from the twin's")
+    sums = part.sum(0)
+    code = torch.arange(w * w, device=dev)
+    keepc = ((sums[..., 3] > 0) & (code // w + code % w != 0))
+    mean = sums[..., :3] / sums[..., 3:].clamp(min=1.0)
+    amax = mean.argmax(dim=2)
+    tabs = (keepc.to(torch.uint8), amax.to(torch.uint8),
+            mean.gather(2, amax[..., None])[..., 0].contiguous())
+    masks = [torch.zeros((n, m), dtype=torch.uint8, device=dev)
+             for _ in range(2)]
+    counts = site_filter(*args, *tabs, masks[0], 0.01)
+    want = site_filter_twin(*args, *tabs, masks[1], 0.01)
+    if not (torch.equal(masks[0], masks[1]) and torch.equal(counts, want)):
+        raise AssertionError("ztables_filter: mask or counts differ from the "
+                             "twin's")
+    kept = float(masks[0].sum(dtype=torch.float64)) / (m * n)
+    shape = f"M={m} N={n} uint8 W={w} chunks={n_chunks} kept={kept:.4f}"
+    reads = m * n * (2 + 8)
+    results["ztables_bin"].update(
+        **bound(0, reads + part.numel() * 8), max_abs_err=0.0,
+        ms=time_ms(lambda: combo_bins(*args), 5),
+        plain_ms=time_ms(lambda: combo_bins_twin(*args), 1), shape=shape)
+    results["ztables_filter"].update(
+        **bound(0, reads + m * n + counts.numel() * 4), max_abs_err=0.0,
+        ms=time_ms(lambda: site_filter(*args, *tabs, masks[0], 0.01), 5),
+        plain_ms=time_ms(
+            lambda: site_filter_twin(*args, *tabs, masks[1], 0.01), 1),
+        shape=shape)
+    del ad, g0, g1, part, masks
+    torch.cuda.empty_cache()
 
 
 def loglik_vs_twin(dev, gen, results):
@@ -1133,17 +1220,13 @@ def ranks_main_path(main_counts, main_totals, main_iters):
 def assignment_z_f64_sums(beagle_path, ids, ad_path, prefix):
     """The assignment z-scores of phase 10b's one-rank command with the
     three z sums added in float64 (one rank, on the card)."""
-    import functools
-
     import numpy as np
-    import torch
 
     from wgsassign_tpu_torch.io.ad import read_allele_depths
     from wgsassign_tpu_torch.io.beagle import read_beagle
     from wgsassign_tpu_torch.io.ids import read_ids, read_pop_names
     from wgsassign_tpu_torch.models.common import to_device
     from wgsassign_tpu_torch.models.zscore import assignment_z_scores
-    from wgsassign_tpu_torch.ops.zscore_ops import zscore_sums_batch_compact
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
     beagle = read_beagle(beagle_path)
@@ -1154,8 +1237,7 @@ def assignment_z_f64_sums(beagle_path, ids, ad_path, prefix):
         beagle, ad, read_ids(ids).pop_labels,
         np.load(prefix + ".pop_af.npy"),
         read_pop_names(prefix + ".pop_names.txt"), cohort=cohort,
-        sums_op=functools.partial(zscore_sums_batch_compact,
-                                  sum_dtype=torch.float64))
+        f64_sums=True)
     return res.z
 
 

@@ -722,12 +722,17 @@ def test_reference_z_of_909_members_runs_the_kernel_on_the_card(cuda):
 
 def test_no_pallas_runs_no_kernel_on_the_card(cuda):
     """``use_kernels=False`` (--no_pallas): the plain ops on the card, no
-    EM kernel and no ``loglik`` launched, equal iterations and AF to the
-    kernels' run."""
+    EM kernel, no ``loglik`` and no ``ztables_*`` launched, equal
+    iterations and AF to the kernels' run, and reference z-scores with
+    equal loci and EM iterations."""
     from wgsassign_tpu_torch.io.ids import population_map
-    from wgsassign_tpu_torch.models.common import to_device
+    from wgsassign_tpu_torch.models.common import (
+        to_device,
+        upload_allele_depths,
+    )
     from wgsassign_tpu_torch.models.loo import leave_one_out
     from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
+    from wgsassign_tpu_torch.models.zscore import reference_z_scores
     from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
     beagle = _beagle(3000, 30, 23)
@@ -751,6 +756,25 @@ def test_no_pallas_runs_no_kernel_on_the_card(cuda):
     np.testing.assert_array_equal(plain[1].iters, fused[1].iters)
     np.testing.assert_allclose(plain[0].af, fused[0].af, rtol=0, atol=1e-5)
     np.testing.assert_allclose(plain[1].ll, fused[1].ll, rtol=1e-5, atol=2e-3)
+
+    zbeagle, zpopmap, ad = _jittered_cohort(20_000, 30, 3, 25)
+    zruns = {}
+    for use_kernels in (False, None):
+        _kernels.launches.clear()
+        cohort = to_device(zbeagle,
+                           make_runtime(cuda, use_kernels=use_kernels))
+        z = reference_z_scores(zbeagle, upload_allele_depths(ad, cohort),
+                               zpopmap, cohort=cohort)
+        zruns[use_kernels] = (z, dict(_kernels.launches))
+    (zp, zp_counts), (zf, zf_counts) = zruns[False], zruns[None]
+    assert not any(zp_counts.get(k) for k in (
+        "ztables_bin", "ztables_filter", "zloo_chunk", "sites_chunk"))
+    assert zf_counts["ztables_bin"] == zf_counts["ztables_filter"] == 1
+    assert zf_counts["zloo_chunk"]
+    assert zp.engine == "plain" and zf.engine == "zloo_chunk"
+    np.testing.assert_array_equal(zp.loci, zf.loci)
+    np.testing.assert_array_equal(zp.em_iters, zf.em_iters)
+    np.testing.assert_allclose(zp.z, zf.z, rtol=0, atol=1e-4)
 
 
 def test_kernels_build_and_probe_under_a_compile_cache(cuda, tmp_path):
@@ -836,3 +860,115 @@ def test_a_span_times_the_cuda_stream(cuda, monkeypatch):
     assert got["calls"] == 1
     assert got["device_s"] > 0 and got["host_s"] > 0
     assert torch.isfinite(y).all()
+
+
+def _jittered_cohort(m, n, k, seed):
+    """A synthetic cohort with its allele depths, a fifth of its GL triples
+    moved off the read counts' values (the site filter then drops some)."""
+    from wgsassign_tpu_torch.io.beagle import BeagleData
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.io.synth import synth_cohort
+
+    gl, labels, ad = synth_cohort(m, n, n_pops=k, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    g = np.concatenate([gl, 1.0 - gl.sum(axis=2, keepdims=True)], axis=2)
+    jitter = rng.random((m, n)) < 0.2
+    g = np.where(jitter[:, :, None],
+                 g * np.exp(rng.normal(0.0, 0.1, g.shape)), g)
+    gl = (g / g.sum(axis=2, keepdims=True))[:, :, :2].astype(np.float32)
+    names = [f"Ind{i}" for i in range(n)]
+    return (BeagleData(gl, names, [f"s{i}" for i in range(m)]),
+            population_map(names, labels), ad)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_ztables_kernels_match_twins(cuda, dtype):
+    """Both table passes, bit for bit: each chunk's sites are added in site
+    order by the kernel's thread and by the twin's ``index_add_``."""
+    from wgsassign_tpu_torch.ops.ztables import (
+        combo_bins,
+        combo_bins_twin,
+        site_filter,
+        site_filter_twin,
+    )
+
+    m, n, width, col0, b = 70_001, 40, 9, 3, 35
+    rng = np.random.default_rng(21)
+    ad = torch.from_numpy(rng.integers(0, width, (m, 2 * n))).to(dtype)
+    g0, g1 = (torch.from_numpy(x) for x in _gls(m, n, 22))
+    args = (col0, b, m - 5, width)
+    dev = [t.to(cuda) for t in (ad, g0, g1)]
+    before = _kernels.launches["ztables_bin"]
+    part = combo_bins(*dev, *args)
+    assert _kernels.launches["ztables_bin"] == before + 1
+    want = combo_bins_twin(ad, g0, g1, *args)
+    assert torch.equal(part.cpu(), want)
+    sums = want.sum(0)
+    keepc = (sums[..., 3] > 900).to(torch.uint8)
+    mean = sums[..., :3] / sums[..., 3:].clamp(min=1.0)
+    amax = mean.argmax(2)
+    meanv = mean.gather(2, amax[..., None])[..., 0].contiguous()
+    tabs = (keepc, amax.to(torch.uint8), meanv)
+    mask = torch.zeros((b, m), dtype=torch.uint8)
+    mask_d = mask.to(cuda)
+    counts = site_filter(*dev, *args, *(t.to(cuda) for t in tabs), mask_d,
+                         0.3)
+    want = site_filter_twin(ad, g0, g1, *args, *tabs, mask, 0.3)
+    assert 0 < int(mask.sum()) < b * m
+    assert torch.equal(mask_d.cpu(), mask)
+    assert torch.equal(counts.cpu(), want)
+
+
+def test_device_tables_card_vs_cpu(cuda):
+    """``build_tables`` on the card equals the CPU's: kept sites, combos,
+    mean GLs, read probabilities, split tables and counts."""
+    from wgsassign_tpu_torch.models.common import (
+        to_device,
+        upload_allele_depths,
+    )
+    from wgsassign_tpu_torch.models.zscore import build_tables
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle, _, ad = _jittered_cohort(50_000, 36, 3, 23)
+    built = []
+    for dev in (cuda, "cpu"):
+        cohort = to_device(beagle, make_runtime(dev))
+        built.append(build_tables(cohort, upload_allele_depths(ad, cohort),
+                                  2, 33, 0, False))
+    got, want = built
+    for name in ("mask", "combos", "mean_gl", "read_probs",
+                 "rows_by_depth"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    for name in ("n_rows", "s_local", "s_glob"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+
+
+@pytest.mark.parametrize("single_read,structure,engine", [
+    (False, "loo-structured", "zloo_chunk"),
+    (True, "gathered", "sites_chunk")])
+def test_reference_z_100k_card_vs_cpu(cuda, single_read, structure, engine):
+    """Reference z-scores at 100,000 sites on the card against the CPU, in
+    both EM structures: equal loci and EM iterations, z to atol 1e-4 (the
+    EM kernels round as their twins do and both sides sum the z terms in
+    float64, in other orders)."""
+    from wgsassign_tpu_torch.models.common import (
+        to_device,
+        upload_allele_depths,
+    )
+    from wgsassign_tpu_torch.models.zscore import reference_z_scores
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle, popmap, ad = _jittered_cohort(100_000, 16, 2, 24)
+    out = []
+    for dev in (cuda, "cpu"):
+        cohort = to_device(beagle, make_runtime(dev))
+        out.append(reference_z_scores(
+            beagle, upload_allele_depths(ad, cohort), popmap,
+            cohort=cohort, single_read_threshold=single_read))
+    got, want = out
+    assert got.structure == want.structure == structure
+    assert got.engine == engine
+    np.testing.assert_array_equal(got.loci, want.loci)
+    np.testing.assert_array_equal(got.em_iters, want.em_iters)
+    assert np.isfinite(got.z).all()
+    np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-4)

@@ -155,19 +155,28 @@ def test_streamed_cli_outputs_equal_in_memory(files, config):
                 == _read(prefixes["memory"] + suffix)), suffix
 
 
-def test_z_columns_gathered_from_the_device_cohort(files):
-    """Under streamed ingest the z-score tables read each individual's GL
-    column from the device cohort, in chunks: the same columns as the host
-    parse."""
-    from wgsassign_tpu_torch.models.zscore import _gl_column_iter
+def test_z_tables_of_a_streamed_cohort_equal_in_memory(files):
+    """Under streamed ingest the z-score tables are built from the device
+    cohort and the uploaded depths alone: the same tables, kept sites and
+    counts as from the in-memory cohort (padded to 8 sites)."""
+    from wgsassign_tpu_torch.io.ad import read_allele_depths
+    from wgsassign_tpu_torch.models.common import upload_allele_depths
+    from wgsassign_tpu_torch.models.zscore import build_tables
 
     rt = make_runtime("cpu")
     beagle = read_beagle(files["beagle"])
-    cohort, meta, _ = stream_to_device(files["beagle"], rt, site_multiple=8)
-    inds = [0, 3, 4, 29]
-    host = list(_gl_column_iter(beagle, cohort, inds))
-    dev = list(_gl_column_iter(meta, cohort, inds, chunk=3))
-    assert [i for i, _ in dev] == inds
-    for (_, a), (_, b) in zip(host, dev):
-        assert b.shape == (M, 2) and b.dtype == np.float32
-        np.testing.assert_array_equal(a, b)
+    ad = read_allele_depths(files["ad"], n_sites=M, n_inds=N)
+    built = []
+    for cohort in (to_device(beagle, rt),
+                   stream_to_device(files["beagle"], rt, site_multiple=8)[0]):
+        built.append(build_tables(cohort, upload_allele_depths(ad, cohort),
+                                  3, 29, 0, False))
+    mem, streamed = built
+    for name in ("combos", "mean_gl", "read_probs", "rows_by_depth"):
+        assert torch.equal(getattr(mem, name), getattr(streamed, name)), name
+    assert torch.equal(mem.mask, streamed.mask[:, :M])
+    assert not streamed.mask[:, M:].any()
+    for name in ("n_rows", "s_local", "s_glob"):
+        np.testing.assert_array_equal(getattr(mem, name),
+                                      getattr(streamed, name))
+

@@ -156,22 +156,60 @@ def cohort_data():
     return beagle, popmap, ad, labels
 
 
+def _device_tables(beagle, ad, threshold, single_read, inds=None):
+    """The port's combo tables (``build_tables``, the plain twins on the
+    CPU) of individuals ``inds`` (a range), with their cohort and depths."""
+    from wgsassign_tpu_torch.models.common import upload_allele_depths
+
+    cohort = to_device(beagle, make_runtime("cpu"))
+    depths = upload_allele_depths(ad, cohort)
+    inds = range(N) if inds is None else inds
+    return tz.build_tables(cohort, depths, inds.start, inds.stop, threshold,
+                           single_read), depths
+
+
+def _individual_tables(tables, depths, j, col):
+    """One individual's device tables in the JAX package's host form:
+    ``(combos, mean_gl, read_probs, keep_sites, site_row, site_depth)`` and
+    its ``rows_by_depth`` cut to the kept-site depths' extent."""
+    r = int(tables.n_rows[j])
+    combos = tables.combos[j, :r].numpy().astype(np.int64)
+    keep_sites = np.flatnonzero(tables.mask[j].numpy())
+    ad = depths.counts.numpy().astype(np.int64)
+    pairs = ad[keep_sites][:, 2 * col: 2 * col + 2]
+    row_of = {tuple(c): k for k, c in enumerate(combos)}
+    site_row = np.asarray([row_of[tuple(p)] for p in pairs], np.int32)
+    site_depth = pairs.sum(axis=1)
+    c = int(site_depth.max()) + 1
+    return ((combos, tables.mean_gl[j, :r].numpy(),
+             tables.read_probs[j, :r].numpy(), keep_sites, site_row,
+             site_depth),
+            tables.rows_by_depth[j, :c, :c].numpy())
+
+
 @pytest.mark.parametrize("threshold,single_read", [(0, False), (3, False),
                                                    (0, True)])
 def test_host_tables_equal_jax(cohort_data, threshold, single_read):
+    """The device tables (built for all individuals at once) equal the JAX
+    package's host tables, individual by individual: combos, kept sites,
+    rows, mean GLs, read-probability rows and ``rows_by_depth``."""
     from wgsassign_tpu.models import zscore as jz
 
     beagle, _, ad, _ = cohort_data
+    tables, depths = _device_tables(beagle, ad, threshold, single_read)
     for i in (0, 7, 19):
-        args = (beagle.gl[:, i, :], ad[:, 2 * i: 2 * i + 2], threshold,
-                single_read)
-        want, got = jz.build_combo_tables(*args), tz.build_combo_tables(*args)
-        for field in ("combos", "mean_gl", "read_probs", "keep_sites",
-                      "site_row", "site_depth", "g0_keep", "g1_keep"):
-            np.testing.assert_array_equal(getattr(got, field),
-                                          getattr(want, field))
-        np.testing.assert_array_equal(tz._split_tables(got),
-                                      jz._split_tables(want))
+        want = jz.build_combo_tables(beagle.gl[:, i, :],
+                                     ad[:, 2 * i: 2 * i + 2], threshold,
+                                     single_read)
+        got, rbd = _individual_tables(tables, depths, i, i)
+        for name, x, y in zip(("combos", "mean_gl", "read_probs",
+                               "keep_sites", "site_row", "site_depth"), got,
+                              (want.combos, want.mean_gl, want.read_probs,
+                               want.keep_sites, want.site_row,
+                               want.site_depth)):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        assert tables.s_glob[i] == tables.s_local[i] == want.keep_sites.size
+        np.testing.assert_array_equal(rbd, jz._split_tables(want))
 
 
 def _jax_runtime():
@@ -262,27 +300,29 @@ def test_assignment_z_scores_match_jax(cohort_data, case):
                                    rtol=1e-4, atol=1e-4, err_msg=field)
 
 
-def test_assignment_z_scores_with_float64_sums(cohort_data):
-    """``sums_op`` with ``sum_dtype=torch.float64`` (what a check uses to
-    separate the rounding of the three z sums from other differences):
-    float64 sums come back, and z agrees with the float32-sum run to that
-    rounding."""
+def test_assignment_z_scores_with_float64_sums(cohort_data, monkeypatch):
+    """``f64_sums`` (the default; ``--f32_sums`` turns it off): the three z
+    sums come back in float64, and z agrees with the float32-sum run to
+    that rounding."""
     beagle, _, ad, labels = cohort_data
     af = np.random.default_rng(3).uniform(0.05, 0.95, (M, K)).astype(
         np.float32)
     pops = np.asarray([f"pop{j}" for j in range(K)])
     seen = []
 
-    def f64_sums(*args):
-        out = zscore_sums_batch_compact(*args, sum_dtype=torch.float64)
-        seen.extend(t.dtype for t in out)
+    def recorded(*args, **kwargs):
+        out = zscore_sums_batch_compact(*args, **kwargs)
+        seen.append({t.dtype for t in out})
         return out
 
+    monkeypatch.setattr(tz, "zscore_sums_batch_compact", recorded)
     cohort = to_device(beagle, make_runtime("cpu"))
-    base = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort)
-    got = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort,
-                                 sums_op=f64_sums)
-    assert seen and set(seen) == {torch.float64}
+    base = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort,
+                                  f64_sums=False)
+    assert seen and all(d == {torch.float32} for d in seen)
+    seen.clear()
+    got = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort)
+    assert seen and all(d == {torch.float64} for d in seen)
     np.testing.assert_array_equal(got.loci, base.loci)
     np.testing.assert_allclose(got.z, base.z, rtol=0, atol=1e-4)
     np.testing.assert_allclose(got.w_obs, base.w_obs, rtol=1e-5)
@@ -325,3 +365,101 @@ def test_zscore_modules_never_load_jax():
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_first_float32_log_of_a_process_is_exact(seed):
+    """A fresh interpreter with several threads: the port's first
+    multi-threaded float32 log of the process (``ops.log``) equals the
+    second bit for bit (MKL's first parallel call can return one thread's
+    chunk ~2e-5 off; ``ops.log`` makes one serial call first)."""
+    code = (
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(8)\n"
+        "from wgsassign_tpu_torch.ops import log\n"
+        f"rng = np.random.default_rng({seed})\n"
+        "x = torch.from_numpy((rng.random((16, 131072)) * 0.9 + 0.05)"
+        ".astype(np.float32))\n"
+        "x + 1\n"
+        "first, second = log(x), log(x)\n"
+        "assert torch.equal(first, second), int((first != second).sum())\n"
+        "print('LOG_OK')\n"
+    )
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LOG_OK" in proc.stdout
+
+
+def _small_beagle():
+    """40 sites x 3 individuals."""
+    gl = np.full((40, 3, 2), 0.3, np.float32)
+    return BeagleData(gl, ["a", "b", "c"], [f"s{i}" for i in range(40)])
+
+
+@pytest.mark.parametrize("largest,dtype", [
+    (255, torch.uint8), (256, torch.int32), (2**31 - 1, torch.int32)])
+def test_device_depths_take_uint8_or_int32(largest, dtype):
+    """Allele depths are held in uint8 where every count fits, else in
+    int32, and keep their values."""
+    from wgsassign_tpu_torch.models.common import upload_allele_depths
+
+    beagle = _small_beagle()
+    ad = np.arange(40 * 6, dtype=np.int64).reshape(40, 6) % 7
+    ad[5, 4] = largest
+    cohort = to_device(beagle, make_runtime("cpu"))
+    depths = upload_allele_depths(ad, cohort)
+    assert depths.counts.dtype == dtype
+    np.testing.assert_array_equal(
+        depths.counts[:40].long().numpy(), ad)
+    np.testing.assert_array_equal(depths.col_max, ad.reshape(40, 3, 2)
+                                  .max(axis=(0, 2)))
+
+
+@pytest.mark.parametrize("bad", [-1, 2**31])
+def test_device_depths_refuse_counts_int32_cannot_hold(bad):
+    from wgsassign_tpu_torch.models.common import upload_allele_depths
+
+    beagle = _small_beagle()
+    ad = np.ones((40, 6), dtype=np.int64)
+    ad[7, 1] = bad
+    cohort = to_device(beagle, make_runtime("cpu"))
+    with pytest.raises(ValueError, match="negative|int32"):
+        upload_allele_depths(ad, cohort)
+
+
+def test_ztables_twins_under_kernel_false_equal_the_cpu_path():
+    """``kernel=False`` (``--no_pallas``) runs the twins, which walk the
+    site axis a chunk at a time: the same partials, mask and counts as the
+    default call on CPU tensors."""
+    from wgsassign_tpu_torch.ops.ztables import combo_bins, site_filter
+
+    m, n, width, col0, b = 9_001, 12, 6, 2, 9
+    rng = np.random.default_rng(5)
+    ad = torch.from_numpy(rng.integers(0, width, (m, 2 * n))).to(torch.uint8)
+    g = rng.dirichlet(np.ones(3), (m, n)).astype(np.float32)
+    g0, g1 = torch.from_numpy(g[..., 0].copy()), torch.from_numpy(
+        g[..., 1].copy())
+    args = (ad, g0, g1, col0, b, m - 3, width)
+    part = combo_bins(*args)
+    assert part.shape[0] > 1  # several chunks
+    assert torch.equal(combo_bins(*args, kernel=False), part)
+    sums = part.sum(0)
+    assert float(sums[..., 3].sum()) == b * (m - 3)
+    keepc = (sums[..., 3] > 20).to(torch.uint8)
+    mean = sums[..., :3] / sums[..., 3:].clamp(min=1.0)
+    amax = mean.argmax(2)
+    meanv = mean.gather(2, amax[..., None])[..., 0].contiguous()
+    out = []
+    for kernel in (True, False):
+        mask = torch.zeros((b, m), dtype=torch.uint8)
+        counts = site_filter(*args, keepc, amax.to(torch.uint8), meanv, mask,
+                             0.3, kernel=kernel)
+        out.append((mask, counts))
+    assert 0 < int(out[0][0].sum()) < b * (m - 3)
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert int(out[0][1].sum()) == int(out[0][0].sum())

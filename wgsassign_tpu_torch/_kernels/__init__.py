@@ -35,7 +35,7 @@ from wgsassign_tpu_torch.compile_cache import build_root
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_NAME = "wgsassign_tpu_torch_kernels"
 SOURCES = ("probe.cu", "em_chunk.cu", "loo_chunk.cu", "zloo_chunk.cu",
-           "sites_chunk.cu", "loglik.cu")
+           "sites_chunk.cu", "loglik.cu", "ztables.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: every multiply and add rounds on its own, as in the plain
 # twins (see csrc/common.cuh); no --use_fast_math, so '/' is IEEE-rounded
@@ -54,6 +54,8 @@ launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "wg_probe": (_I, _P, _P, _I, _P),
     "wg_em_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -66,6 +68,10 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_loglik": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_ztables_bin": (_I, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _L, _I,
+                       _P),
+    "wg_ztables_filter": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                          _I, _I, _L, _L, _D, _I, _P),
 }
 # wg_<kernel>_occupancy(device, block width, smem bytes, fast_math); for
 # loglik the last is float64 sums

@@ -563,6 +563,8 @@ def _z_scores(args, beagle, cohort, timer, writers):
 
     from wgsassign_tpu_torch.io.ad import read_allele_depths
     from wgsassign_tpu_torch.io.ids import read_ids, read_pop_names
+    from wgsassign_tpu_torch.models.common import upload_allele_depths
+    from wgsassign_tpu_torch.parallel.runtime import synchronize
 
     if beagle is None:
         raise ValueError("z-scores need the --beagle file")
@@ -576,6 +578,10 @@ def _z_scores(args, beagle, cohort, timer, writers):
     with timer.phase("parse_ad"):
         ad = read_allele_depths(args.ind_ad_file, n_sites=cohort.m_real,
                                 n_inds=beagle.n_inds)
+    # once, beside the GL planes: this rank's rows, in the narrowest type
+    with timer.phase("h2d_ad"):
+        ad = upload_allele_depths(ad, cohort)
+        synchronize(cohort.runtime.device)
     if not os.path.isfile(args.pop_names or ""):
         raise FileNotFoundError("Population names file does not exist!!")
     pops = read_pop_names(args.pop_names)
@@ -601,6 +607,7 @@ def _z_scores(args, beagle, cohort, timer, writers):
                 args.single_read_threshold, args.maf_iter, args.maf_tole,
                 cohort=cohort, verbose=True,
                 error_rate=args.zscore_error_rate, timer=timer,
+                f64_sums=not args.f32_sums,
             )
         timer.results["reference_z"] = res
         print(f"Reference z-score EM: {res.structure} (kept fraction "
@@ -623,6 +630,7 @@ def _z_scores(args, beagle, cohort, timer, writers):
                 beagle, ad, popmap.pop_labels, af, pops, ind_start, ind_end,
                 threshold, args.single_read_threshold, cohort=cohort,
                 verbose=True, error_rate=args.zscore_error_rate, timer=timer,
+                f64_sums=not args.f32_sums,
             )
         timer.results["assignment_z"] = res
         writers.write_z_scores(args.out, res.z, reference_mode=False,

@@ -111,6 +111,68 @@ def _shard_to_device(shard, runtime: Runtime,
                         runtime=runtime, lo=shard.lo, hi=shard.hi)
 
 
+@dataclass
+class DeviceDepths:
+    """Allele depths (``--ind_ad_file``) resident beside a
+    :class:`DeviceCohort`: ``counts`` is ``[M_pad, 2N]`` (major, minor read
+    counts of each individual) over the cohort's rows, its window with
+    several ranks, in uint8 where every count fits, else int32; padding
+    rows hold 0.  ``col_max`` is each individual's largest count over the
+    whole site axis (``[N]`` int64, on the host): it sizes the combo
+    tables."""
+
+    counts: torch.Tensor
+    col_max: np.ndarray
+
+
+def _narrowest(lo: int, hi: int) -> torch.dtype:
+    if lo < 0:
+        raise ValueError(f"allele depths must not be negative (found {lo})")
+    if hi > 0x7FFFFFFF:
+        raise ValueError(f"allele depth {hi} does not fit in int32")
+    return torch.uint8 if hi <= 0xFF else torch.int32
+
+
+def upload_allele_depths(ad: np.ndarray, cohort: DeviceCohort) -> DeviceDepths:
+    """Copy a host ``[M, 2N]`` allele-depth matrix (``read_allele_depths``)
+    to the cohort's device once: this rank's rows, padded to ``m_pad``,
+    narrowed there by :func:`device_depths`.  Raises on a negative count."""
+    ad = np.asarray(ad)
+    if ad.ndim != 2 or ad.shape != (cohort.m_real, 2 * cohort.n_inds):
+        raise ValueError(
+            f"allele depths {ad.shape} do not match the cohort's "
+            f"{cohort.m_real} sites x {cohort.n_inds} individuals")
+    (counts,) = from_jax_arrays(local_rows(ad, cohort, 0),
+                                device=cohort.runtime.device)
+    return device_depths(counts, cohort)
+
+
+def device_depths(counts: torch.Tensor, cohort: DeviceCohort) -> DeviceDepths:
+    """Allele depths on the device (``[M_pad, 2N]``, integer, this rank's
+    rows, padding rows 0) as :class:`DeviceDepths`, in uint8 where every
+    count fits, else int32.  One small fetch: each
+    individual's largest count (over all ranks) and the smallest count."""
+    rt = cohort.runtime
+    if counts.dtype.is_floating_point or counts.dtype == torch.bool:
+        raise ValueError(f"allele depths have dtype {counts.dtype}")
+    if tuple(counts.shape) != (cohort.m_pad, 2 * cohort.n_inds):
+        raise ValueError(f"allele depths {tuple(counts.shape)}, expected "
+                         f"{(cohort.m_pad, 2 * cohort.n_inds)}")
+    # a max over the ranks by a sum: each rank fills its own row with its
+    # individuals' largest counts and its negated smallest count
+    rows = torch.zeros((rt.world, cohort.n_inds + 1), dtype=torch.long,
+                       device=counts.device)
+    if cohort.n_local:
+        real = counts[: cohort.n_local].view(cohort.n_local, -1, 2)
+        rows[rt.rank, :-1] = real.amax(dim=(0, 2))
+        rows[rt.rank, -1] = -real.amin().long()
+    rows = rt.all_reduce_sum(rows).cpu().numpy().max(axis=0)
+    col_max, lo = rows[:-1].astype(np.int64), -int(rows[-1])
+    return DeviceDepths(
+        counts=counts.to(_narrowest(lo, int(col_max.max()))).contiguous(),
+        col_max=col_max)
+
+
 def local_rows(arr: np.ndarray, cohort: DeviceCohort, pad_value) -> np.ndarray:
     """The rows of a global ``[M, ...]`` host array that fall in the
     cohort's window, padded to its ``m_pad`` rows with ``pad_value``."""

@@ -44,6 +44,7 @@ import torch
 
 from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.obs.profiling import count
+from wgsassign_tpu_torch.ops import log
 
 # float32 elements per temporary of the [individuals, K, M] per-site pass:
 # 2**28 is 1 GiB, a few of which coexist -- well inside an 80 GB card.
@@ -73,7 +74,7 @@ def site_like(g0, g1, a):
 
 def site_loglik(g0, g1, a):
     """log( g0*(1-a)^2 + g1*2a(1-a) + (1-g0-g1)*a^2 ), broadcasting."""
-    return torch.log(site_like(g0, g1, a))
+    return log(site_like(g0, g1, a))
 
 
 def _selected_site_like(g0, g1, af_bank_t, col_idx):
@@ -94,7 +95,7 @@ def _selected_site_ll(g0, g1, af_bank_t, col_idx, site_weight):
     """Yield ``(rows, ll [b, K, M] float32)`` per individual block: the
     weighted per-site log-likelihoods of the selected AF rows."""
     for rows, like in _selected_site_like(g0, g1, af_bank_t, col_idx):
-        yield rows, torch.log(like) * site_weight
+        yield rows, log(like) * site_weight
 
 
 def loglik_geometry(n: int, ks: int, c: int, p: int) -> tuple:

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from wgsassign_tpu_torch.ops import log
+
 
 def zscore_sums_batch_compact(g0k, g1k, a, weight, site_depth,
                               rows_by_depth, like_tab, fact_tab,
@@ -48,7 +50,7 @@ def zscore_sums_batch_compact(g0k, g1k, a, weight, site_depth,
     p0 = (1.0 - a) * (1.0 - a)
     p1 = 2.0 * (1.0 - a) * a
     p2 = a * a
-    w_obs_site = torch.log(g0k * p0 + g1k * p1 + (1.0 - g0k - g1k) * p2)
+    w_obs_site = log(g0k * p0 + g1k * p1 + (1.0 - g0k - g1k) * p2)
 
     depth = site_depth.long()
     rbd = rows_by_depth.reshape(b, c * c).long()
@@ -60,7 +62,7 @@ def zscore_sums_batch_compact(g0k, g1k, a, weight, site_depth,
         rows = torch.gather(rbd, 1, depth * c + x)  # [B, S]
         mg = [torch.gather(like_tab[:, :, k], 1, rows) for k in range(3)]
         rp = [torch.gather(fact_tab[:, :, k], 1, rows) for k in range(3)]
-        lg = torch.log(mg[0] * p0 + mg[1] * p1 + mg[2] * p2)
+        lg = log(mg[0] * p0 + mg[1] * p1 + mg[2] * p2)
         wt = rp[0] * p0 + rp[1] * p1 + rp[2] * p2
         terms.append((valid, lg, wt))
         w_mu_site = w_mu_site + torch.where(valid, lg * wt, zero)
