@@ -19,7 +19,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    pass ``loglik``, the benchmark's leave-one-out column and assignment
    call at 5,000,000 sites; for the z-score tables' two passes
    ``ztables_bin`` and ``ztables_filter``, the z-score cell's 5,000,000 x
-   180 cohort of uint8 read counts, bit for bit);
+   180 cohort of uint8 read counts, bit for bit; for the z sums ``zsums``,
+   one AF group of 32 individuals of that cohort, W = 16, float64 sums to
+   rtol 1e-12);
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
@@ -164,6 +166,8 @@ KERNELS = {
                     "none (host numpy build_combo_tables)", "6a"),
     "ztables_filter": ("wgsassign_tpu_torch/csrc/ztables.cu",
                        "none (host numpy build_combo_tables)", "6a"),
+    "zsums": ("wgsassign_tpu_torch/csrc/zsums.cu",
+              "none (XLA-fused jnp in the JAX package)", "6a"),
 }
 # the likelihood pass at the benchmark's shapes (portbench/configs): a
 # leave-one-out column (a population of 49 at individuals [60, 109), its
@@ -177,6 +181,9 @@ LL_ASSIGN_N, LL_ASSIGN_K, LL_SUM_RTOL = 34, 5, 1e-12
 # uint8 read counts of Poisson(2) depth, capped at 15 reads so the combo
 # tables are W = 16 wide (364 chunks of the site axis a pass)
 ZT_M, ZT_N, ZT_DEPTH, ZT_CAP = 5_000_000, 180, 2.0, 15
+# the z sums on that cohort: one AF group of the z-score cell (32
+# individuals), float64 sums of the same float32 terms in another order
+ZS_GROUP, ZS_SUM_RTOL = 32, 1e-12
 
 
 def paths_kernels(path):
@@ -420,8 +427,74 @@ def ztables_vs_twins(dev, gen, results):
         plain_ms=time_ms(
             lambda: site_filter_twin(*args, *tabs, masks[1], 0.01), 1),
         shape=shape)
-    del ad, g0, g1, part, masks
+    del part, masks
     torch.cuda.empty_cache()
+    zsums_vs_twin(dev, gen, results, ad, g0, g1)
+    del ad, g0, g1
+    torch.cuda.empty_cache()
+
+
+def zsums_vs_twin(dev, gen, results, ad, g0, g1):
+    """Phase 3, the z sums (``zsums``) against their twin on the z-score
+    cell's cohort (``ztables_vs_twins``'s): the tables of its first
+    ``ZS_GROUP`` individuals as the z-score path builds them, their kept
+    slots, AF in [0.02, 0.98], float64 sums to ``ZS_SUM_RTOL``.  The
+    twin runs in the z-score path's blocks (``Z_BLOCK_BYTES``).  The
+    bound counts each kept slot's bytes once (its keep index, AF, two GLs
+    and two read counts), the tables and the sums."""
+    import numpy as np
+    import torch
+
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.models.common import DeviceCohort, device_depths
+    from wgsassign_tpu_torch.models.zscore import (
+        Z_BLOCK_BYTES,
+        _bucket,
+        _kept_slots,
+        build_tables,
+    )
+    from wgsassign_tpu_torch.ops.zscore_ops import (
+        kept_slot_sums,
+        zsums,
+        zsums_geometry,
+    )
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    m, g, f64 = ad.shape[0], ZS_GROUP, torch.float64
+    cohort = DeviceCohort(g0=g0, g1=g1,
+                          site_weight=torch.ones(m, device=dev), m_real=m,
+                          runtime=make_runtime(dev))
+    depths = device_depths(ad, cohort)
+    tables = build_tables(cohort, depths, 0, g, 0, False)
+    s_pad = _bucket(int(tables.s_local.max()), 1)
+    keep, _ = _kept_slots(tables.mask, s_pad)
+    af = 0.02 + 0.96 * torch.rand((g, s_pad), generator=gen, device=dev)
+    ops = (g0, g1, depths.counts, 0, keep, af, tables.s_local,
+           tables.rows_by_depth, tables.mean_gl, tables.read_probs)
+    block = max(1, min(g, Z_BLOCK_BYTES // (s_pad * 256)))
+    got = zsums(*ops, f64)
+    want = kept_slot_sums(*ops, f64, block=block, kernel=False)
+    err = float(((got - want).abs() / want.abs()).max())
+    if not err <= ZS_SUM_RTOL:
+        raise AssertionError(f"zsums: sums differ from the twin's by {err} "
+                             "(relative)")
+    slots = int(tables.s_local.sum())
+    c, r = tables.rows_by_depth.shape[1], tables.mean_gl.shape[1]
+    chunk, n_chunks, smem, cmax = zsums_geometry(
+        g, int(tables.s_local.max()), c, r)
+    results["zsums"].update(
+        **bound(0, slots * (8 + 4 + 4 + 4 + 2) + 4 * g * (c * c + 6 * r)
+                + 8 * 3 * g),
+        max_abs_err=err,
+        ms=time_ms(lambda: zsums(*ops, f64), 5),
+        plain_ms=time_ms(
+            lambda: kept_slot_sums(*ops, f64, block=block, kernel=False), 1),
+        occupancy="{}x{}threads".format(
+            _kernels.occupancy("zsums", dev, cmax, smem, True), 256),
+        shape=f"M={m} G={g} S={s_pad} kept={slots / g:.0f}/individual "
+              f"C={c} R={r} chunk={chunk} chunks={n_chunks} smem={smem} "
+              f"cmax={cmax} twin_block={block}")
+    del cohort, depths, tables, keep, af, ops
 
 
 def loglik_vs_twin(dev, gen, results):

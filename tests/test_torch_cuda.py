@@ -13,7 +13,7 @@ lane-strided partial sums and a butterfly as its kernel does), so ``ft`` agrees 
 and ``sq`` -- summed over sites in another order (warp shuffles, blocks) --
 to rtol 1e-5.  The ``loglik`` kernel forms each float32 term as its plain
 form does, bit for bit, and sums them in another order: float64 sums agree
-to 1e-12.  The analyses (assignment log-likelihoods, Ne) are held to the
+to 1e-12; so does the ``zsums`` kernel (the z sums) with its twin.  The analyses (assignment log-likelihoods, Ne) are held to the
 CPU at the tolerances of tests/test_torch_assign.py and
 tests/test_torch_ne.py; a streamed cohort is bit-identical to an in-memory
 one on the card too.
@@ -768,9 +768,11 @@ def test_no_pallas_runs_no_kernel_on_the_card(cuda):
         zruns[use_kernels] = (z, dict(_kernels.launches))
     (zp, zp_counts), (zf, zf_counts) = zruns[False], zruns[None]
     assert not any(zp_counts.get(k) for k in (
-        "ztables_bin", "ztables_filter", "zloo_chunk", "sites_chunk"))
+        "ztables_bin", "ztables_filter", "zloo_chunk", "sites_chunk",
+        "zsums"))
     assert zf_counts["ztables_bin"] == zf_counts["ztables_filter"] == 1
     assert zf_counts["zloo_chunk"]
+    assert zf_counts["zsums"] == 1  # one AF group of 30
     assert zp.engine == "plain" and zf.engine == "zloo_chunk"
     np.testing.assert_array_equal(zp.loci, zf.loci)
     np.testing.assert_array_equal(zp.em_iters, zf.em_iters)
@@ -972,3 +974,113 @@ def test_reference_z_100k_card_vs_cpu(cuda, single_read, structure, engine):
     np.testing.assert_array_equal(got.em_iters, want.em_iters)
     assert np.isfinite(got.z).all()
     np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-4)
+
+
+def _zsums_operands(dev, dtype, c, r, seed, nan_padding=False):
+    """The z sums' kept-slot operands on ``dev``: five individuals (cohort
+    columns 3-7 of 12) with 30,001, 29,000, 0, 17 and 20,000 kept slots of
+    30,001 (kept sites ascending), ``dtype`` read counts of depth below
+    ``c``, combo rows in ``[0, r)``, AF with ~10% at the clamp edges.
+    Padded slots point at the last site, which no real slot keeps; with
+    ``nan_padding`` its GLs and the padded slots' AF are NaN.  ``keep`` is
+    the first S columns of a ``[G, S + 1]`` table, as the z-score driver
+    slices its slot table."""
+    from wgsassign_tpu_torch.ops.zscore_ops import ZSUMS_THREADS
+
+    m, n, col0 = 40_000, 12, 3
+    s_local = np.asarray([30_001, 29_000, 0, 17, 20_000])
+    g, s = s_local.size, int(s_local.max())
+    assert s % ZSUMS_THREADS  # a ragged last chunk
+    rng = np.random.default_rng(seed)
+    g0, g1 = _gls(m, n, seed)
+    depth = rng.integers(0, c, (m, n))
+    minor = rng.integers(0, depth + 1)
+    counts = np.stack([depth - minor, minor], axis=2).reshape(m, 2 * n)
+    keep = np.full((g, s + 1), m - 1, np.int64)
+    a = rng.uniform(0.02, 0.98, (g, s)).astype(np.float32)
+    edges = np.float32([1e-7, 1.0 - 1e-7, 1.0 / 60.0, 1.0 - 1.0 / 60.0])
+    at_edge = rng.random((g, s)) < 0.1
+    a[at_edge] = rng.choice(edges, size=int(at_edge.sum()))
+    for b, k in enumerate(s_local):
+        keep[b, :k] = np.sort(rng.choice(m - 1, k, replace=False))
+        if nan_padding:
+            a[b, k:] = np.nan
+    if nan_padding:
+        g0[m - 1], g1[m - 1] = np.nan, np.nan
+    rbd = rng.integers(0, r, (g, c, c)).astype(np.int32)
+    mean_gl = rng.dirichlet(np.ones(3), (g, r)).astype(np.float32)
+    read_probs = rng.uniform(0.01, 1.0, (g, r, 3)).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (
+        g0, g1, counts.astype(np.int64), keep, a, rbd, mean_gl, read_probs)]
+    t[2] = t[2].to(dtype)
+    return (*t[:3], col0, t[3][:, :s], t[4], s_local, *t[5:])
+
+
+@pytest.mark.parametrize("check", ["f64", "f32", "repeat", "nan_padding",
+                                   "kernel_false"])
+@pytest.mark.parametrize("c,r", [
+    (4, 12), (16, 256),  # staged tables, the terms in registers
+    (32, 1024),          # staged tables, the terms formed twice
+    (16, 2500),          # tables above the staging bound
+    (40, 3000),          # above both: unstaged, the terms formed twice
+])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_zsums_kernel_matches_twin(cuda, dtype, c, r, check):
+    """The ``zsums`` kernel against its twin on the card: float64 sums to
+    1e-12 (the same float32 terms, added in another order); float32 sums
+    within float32 summation rounding; two launches bit-identical; NaN in
+    the padded slots' AF and GLs leaves every sum as it was (no padded
+    slot is read); ``kernel=False`` launches nothing and runs the twin,
+    and the kernel's call counts one block, its grid's slots and the kept
+    slots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wgsassign_tpu_torch.obs.profiling import counters
+    from wgsassign_tpu_torch.ops.zscore_ops import (
+        ZSUMS_STAGE_BYTES,
+        kept_slot_sums,
+        zsums,
+        zsums_geometry,
+    )
+
+    ops = _zsums_operands(cuda, dtype, c, r, 70 + c)
+    chunk, n_chunks, smem, _ = zsums_geometry(5, 30_001, c, r)
+    assert n_chunks > 1
+    assert (smem > 0) == (4 * (c * c + 6 * r) <= ZSUMS_STAGE_BYTES)
+    f64, f32 = torch.float64, torch.float32
+    before = _kernels.launches["zsums"]
+    got = zsums(*ops, f64)
+    assert _kernels.launches["zsums"] == before + 1
+    assert torch.isfinite(got).all()
+    assert not got[:, 2].any()  # no kept slot
+    if check == "f64":
+        want = kept_slot_sums(*ops, f64, kernel=False)
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    elif check == "f32":
+        got32 = zsums(*ops, f32)
+        want32 = kept_slot_sums(*ops, f32, kernel=False)
+        assert got32.dtype == want32.dtype == f32
+        torch.testing.assert_close(got32, want32, rtol=1e-5, atol=0)
+        torch.testing.assert_close(got32.double(), got, rtol=1e-5, atol=0)
+    elif check == "repeat":
+        got32 = zsums(*ops, f32)
+        for _ in range(2):
+            assert torch.equal(zsums(*ops, f64), got)
+            assert torch.equal(zsums(*ops, f32), got32)
+    elif check == "nan_padding":
+        nan_ops = _zsums_operands(cuda, dtype, c, r, 70 + c, nan_padding=True)
+        assert torch.isnan(nan_ops[5]).any() and torch.isnan(nan_ops[0]).any()
+        assert torch.equal(zsums(*nan_ops, f64), got)
+    else:
+        launched = _kernels.launches["zsums"]
+        want = kept_slot_sums(*ops, f64, block=2, kernel=False)
+        assert _kernels.launches["zsums"] == launched
+        torch.testing.assert_close(want, got, rtol=1e-12, atol=0)
+        names = ("zscore.blocks", "zscore.launched_slots",
+                 "zscore.kept_slots")
+        before = [counters().get(k, 0) for k in names]
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert torch.equal(kept_slot_sums(*ops, f64), got)
+        assert _kernels.launches["zsums"] == launched + 1
+        assert [counters().get(k, 0) - b for k, b in zip(names, before)] == [
+            1, 5 * n_chunks * chunk, 30_001 + 29_000 + 0 + 17 + 20_000]

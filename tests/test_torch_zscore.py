@@ -31,6 +31,7 @@ from wgsassign_tpu.io.ids import population_map
 from wgsassign_tpu.io.synth import synth_cohort
 from wgsassign_tpu_torch.models import zscore as tz
 from wgsassign_tpu_torch.models.common import to_device
+from wgsassign_tpu_torch.ops import zscore_ops
 from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_subset_fused,
     em_maf_sites_batch_fused,
@@ -145,6 +146,153 @@ def test_zsums_match_jax_op():
     for x, y in zip(got, want):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6,
                                    atol=1e-4)
+
+
+def _kept_slot_operands(seed, m=300, n=9, c=6, r=14, col0=3):
+    """The operands of ``kept_slot_sums`` for four individuals with
+    different kept counts (one with none) in 96 slots: kept sites
+    ascending, padded slots at site 0, uint8 depths below ``c``."""
+    rng = np.random.default_rng(seed)
+    g0, g1 = _gls((m, n), seed)
+    depth = rng.integers(0, c, (m, n))
+    minor = rng.integers(0, depth + 1)
+    counts = np.stack([depth - minor, minor], axis=2).reshape(m, 2 * n)
+    s_local = np.asarray([96, 48, 0, 71])
+    g, s = s_local.size, int(s_local.max())
+    keep = np.zeros((g, s), np.int64)
+    for b, k in enumerate(s_local):
+        keep[b, :k] = np.sort(rng.choice(m, k, replace=False))
+    a = rng.uniform(0.05, 0.95, (g, s)).astype(np.float32)
+    rbd = rng.integers(0, r, (g, c, c)).astype(np.int32)
+    mean_gl = rng.dirichlet(np.ones(3), (g, r)).astype(np.float32)
+    read_probs = rng.uniform(0.01, 1.0, (g, r, 3)).astype(np.float32)
+    t = torch.from_numpy
+    return (t(g0), t(g1), t(counts.astype(np.uint8)), col0, t(keep), t(a),
+            s_local, t(rbd), t(mean_gl), t(read_probs))
+
+
+def _gathered(g0, g1, counts, col0, keep, a, s_local, *tables):
+    """The kept slots gathered into the ``[G, S]`` operands of
+    ``zscore_sums_batch_compact``, as the z-score driver gathered them
+    before the sums took kept slots."""
+    g, s = keep.shape
+    cols = torch.arange(col0, col0 + g)[:, None]
+    weight = (torch.arange(s)[None, :]
+              < torch.from_numpy(s_local)[:, None]).to(torch.float32)
+    ad = counts.view(counts.shape[0], -1, 2)[keep, cols].to(torch.int32)
+    depth = torch.where(weight > 0, ad[..., 0] + ad[..., 1], 0)
+    return (g0[keep, cols], g1[keep, cols], a, weight, depth, *tables)
+
+
+@pytest.mark.parametrize("block", [None, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kept_slot_sums_twin_matches_jax_op(block, dtype):
+    """The CPU path of the z sums (the kernel's twin), in blocks of
+    individuals: the sums of ``zscore_sums_batch_compact`` on the gathered
+    operands, bit for bit, and the JAX op's to its tolerance; an
+    individual with no kept slot sums to 0."""
+    from wgsassign_tpu.ops.zscore_ops import (
+        zscore_sums_batch_compact as jax_zsums,
+    )
+
+    ops = _kept_slot_operands(98)
+    got = zscore_ops.kept_slot_sums(*ops, dtype, block=block)
+    assert got.shape == (3, 4) and got.dtype == dtype
+    gathered = _gathered(*ops)
+    want = torch.stack(zscore_sums_batch_compact(*gathered, sum_dtype=dtype))
+    assert torch.equal(got, want)
+    assert not got[:, 2].any()
+    want_jax = jax_zsums(*(jnp.asarray(t.numpy()) for t in gathered))
+    for x, y in zip(got, want_jax):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("block,blocks", [(None, 1), (1, 4), (3, 2)])
+def test_kept_slot_sums_counts_its_slots(block, blocks):
+    """While a profiler records, the twin's call counts its blocks, the
+    whole padded rows it sums as ``zscore.launched_slots`` and the real
+    slots as ``zscore.kept_slots``, all three in one place."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wgsassign_tpu_torch.obs.profiling import counters
+
+    ops = _kept_slot_operands(97)
+    names = ("zscore.blocks", "zscore.launched_slots", "zscore.kept_slots")
+    before = [counters().get(k, 0) for k in names]
+    with profile(activities=[ProfilerActivity.CPU]):
+        zscore_ops.kept_slot_sums(*ops, torch.float64, block=block)
+    got = [counters().get(k, 0) - b for k, b in zip(names, before)]
+    assert got == [blocks, 4 * 96, 96 + 48 + 0 + 71]
+
+
+def _bad_zsums_operands(case):
+    ops = list(_kept_slot_operands(99))
+    dtype = torch.float64
+    if case == "g0_dtype":
+        ops[0] = ops[0].double()
+    elif case == "counts_dtype":
+        ops[2] = ops[2].to(torch.int16)
+    elif case == "keep_dtype":
+        ops[4] = ops[4].to(torch.int32)
+    elif case == "keep_strides":
+        ops[4] = ops[4].t().contiguous().t()
+    elif case == "keep_slice":
+        ops[4] = torch.zeros((4, 97), dtype=torch.int64)[:, :96]
+    elif case == "a_noncontiguous":
+        ops[5] = ops[5].t().contiguous().t()
+    elif case == "rows_shape":
+        ops[7] = ops[7][:, :, :-1]
+    elif case == "read_probs_shape":
+        ops[9] = ops[9][:3]
+    elif case == "s_local_range":
+        ops[6] = ops[6] + 1
+    elif case == "columns":
+        ops[3] = 6
+    elif case == "sums_dtype":
+        dtype = torch.float16
+    return ops, dtype
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "no kernel for device cpu"),
+    ("g0_dtype", "g0 has dtype"),
+    ("counts_dtype", "counts have dtype"),
+    ("keep_dtype", "keep is torch.int32"),
+    ("keep_strides", "keep must have adjacent slots"),
+    ("keep_slice", "no kernel for device cpu"),  # a column slice is taken
+    ("a_noncontiguous", "a must be contiguous"),
+    ("rows_shape", "rows_by_depth has shape"),
+    ("read_probs_shape", "read_probs has shape"),
+    ("s_local_range", "s_local must be"),
+    ("columns", "outside the cohort"),
+    ("sums_dtype", "sums in"),
+])
+def test_zsums_wrapper_rejects_bad_operands(case, match):
+    """The kernel's wrapper checks every operand before it launches, and
+    launches nothing for CPU tensors (``kept_slot_sums`` takes the twin
+    there)."""
+    ops, dtype = _bad_zsums_operands(case)
+    with pytest.raises(ValueError, match=match):
+        zscore_ops.zsums(*ops, dtype)
+
+
+@pytest.mark.parametrize("g,s_max,c,r", [
+    (32, 4_325_000, 16, 256), (3, 1000, 4, 12), (1, 0, 40, 3000),
+    (2, 5000, 32, 1024)])
+def test_zsums_geometry(g, s_max, c, r):
+    """Chunks cover every slot in whole blocks of threads; the tables are
+    staged while they fit; the split terms stay in registers up to 16
+    splits and are formed twice above."""
+    chunk, n_chunks, smem, cmax = zscore_ops.zsums_geometry(g, s_max, c, r)
+    assert chunk % zscore_ops.ZSUMS_THREADS == 0
+    assert chunk >= zscore_ops.ZSUMS_MIN_CHUNK
+    assert n_chunks >= 1 and (n_chunks - 1) * chunk < max(s_max, 1)
+    assert n_chunks * chunk >= s_max
+    assert g * n_chunks <= max(zscore_ops.ZSUMS_BLOCKS, g)
+    tables = 4 * (c * c + 6 * r)
+    assert smem == (tables if tables <= zscore_ops.ZSUMS_STAGE_BYTES else 0)
+    assert cmax == (16 if c <= 16 else 0)
 
 
 @pytest.fixture(scope="module")
@@ -315,7 +463,7 @@ def test_assignment_z_scores_with_float64_sums(cohort_data, monkeypatch):
         seen.append({t.dtype for t in out})
         return out
 
-    monkeypatch.setattr(tz, "zscore_sums_batch_compact", recorded)
+    monkeypatch.setattr(zscore_ops, "zscore_sums_batch_compact", recorded)
     cohort = to_device(beagle, make_runtime("cpu"))
     base = tz.assignment_z_scores(beagle, ad, labels, af, pops, cohort=cohort,
                                   f64_sums=False)

@@ -35,7 +35,7 @@ from wgsassign_tpu_torch.compile_cache import build_root
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_NAME = "wgsassign_tpu_torch_kernels"
 SOURCES = ("probe.cu", "em_chunk.cu", "loo_chunk.cu", "zloo_chunk.cu",
-           "sites_chunk.cu", "loglik.cu", "ztables.cu")
+           "sites_chunk.cu", "loglik.cu", "ztables.cu", "zsums.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: every multiply and add rounds on its own, as in the plain
 # twins (see csrc/common.cuh); no --use_fast_math, so '/' is IEEE-rounded
@@ -72,15 +72,19 @@ _SIGNATURES = {
                        _P),
     "wg_ztables_filter": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
                           _I, _I, _L, _L, _D, _I, _P),
+    "wg_zsums": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                 _L, _L, _I, _I, _L, _I, _I, _I, _I, _I, _P),
 }
 # wg_<kernel>_occupancy(device, block width, smem bytes, fast_math); for
-# loglik the last is float64 sums
+# loglik the last is float64 sums; for zsums the width is the split count
+# held in registers and the last float64 sums
 _OCCUPANCY_SIGNATURES = {
     "wg_em_chunk_occupancy": (_I, _I, _I, _I),
     "wg_loo_chunk_occupancy": (_I, _I, _I, _I),
     "wg_zloo_chunk_occupancy": (_I, _I, _I, _I),
     "wg_sites_chunk_occupancy": (_I, _I, _I, _I),
     "wg_loglik_occupancy": (_I, _I, _I, _I),
+    "wg_zsums_occupancy": (_I, _I, _I, _I),
 }
 
 
@@ -185,7 +189,9 @@ def occupancy(name: str, device: torch.device, width: int, smem_bytes: int,
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for kernel ``name``
     (``em_chunk``: ``width`` sites a block; ``loo_chunk``, ``zloo_chunk``
     and ``sites_chunk``: ``width`` warps a block; ``loglik``: ``width``
-    threads a block, and ``fast_math`` stands for float64 sums) with
+    threads a block, and ``fast_math`` stands for float64 sums; ``zsums``:
+    ``width`` is the kernel's split count held in registers, and
+    ``fast_math`` stands for float64 sums) with
     ``smem_bytes`` of dynamic shared memory."""
     lib = library()
     blocks = getattr(lib, f"wg_{name}_occupancy")(

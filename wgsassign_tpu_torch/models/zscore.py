@@ -33,7 +33,8 @@ only) otherwise.  Under ``--no_pallas`` the plain ops of ``ops/emmaf.py`` run
 in the same structure instead, and the tables' two passes run their plain
 twins; ``ZScoreResult.engine`` says which ran.  The
 three z sums are float64 (float32 under ``--f32_sums``, as the JAX package
-sums them).
+sums them), one ``zsums`` kernel launch an AF group on a GPU
+(``ops/zscore_ops.py``; its plain twin under ``--no_pallas``).
 
 With several ranks each rank bins its own window of the site axis; the
 per-combo sums and the per-depth kept counts are added over the ranks, so
@@ -64,7 +65,7 @@ from wgsassign_tpu_torch.models.common import (
     upload_allele_depths,
 )
 from wgsassign_tpu_torch.models.loo import _member_panels
-from wgsassign_tpu_torch.obs.profiling import count, span
+from wgsassign_tpu_torch.obs.profiling import span
 from wgsassign_tpu_torch.ops.emmaf import em_maf_loo_subset, em_maf_sites_batch
 from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_subset_fused,
@@ -72,7 +73,7 @@ from wgsassign_tpu_torch.ops.fused_em import (
 )
 from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk
 from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk
-from wgsassign_tpu_torch.ops.zscore_ops import zscore_sums_batch_compact
+from wgsassign_tpu_torch.ops.zscore_ops import kept_slot_sums
 from wgsassign_tpu_torch.ops.ztables import (
     PARTIAL_BYTES,
     combo_bins,
@@ -90,9 +91,11 @@ SEQ_ERROR_RATE = 0.01       # hard-coded in the reference (WGSassign.py:350,430)
 GL_MEAN_TOLERANCE = 0.01    # hard-coded in the reference (zscore.py:55)
 
 # Device-memory budgets, sized for an 80 GB H100 (PERF.md).  Z_BLOCK_BYTES
-# bounds one z-sums block: at ~256 bytes per kept-site slot and individual
-# (inputs, the per-split lg/wt rows kept between the two passes, gather
-# temporaries) it holds 32 individuals at 1M kept-site slots.
+# bounds one block of the z sums' plain twin (``--no_pallas``, the CPU): at
+# ~256 bytes per kept-site slot and individual (inputs, the per-split lg/wt
+# rows kept between the two passes, gather temporaries) it holds 32
+# individuals at 1M kept-site slots.  The kernel sums an AF group in one
+# launch and needs no temporaries.
 Z_BLOCK_BYTES = 8 << 30
 # One AF/EM group: the individuals whose kept-site AF panels (reference
 # mode: whose LOO EMs) are produced by one af_block_fn call.  Its AF panel
@@ -252,10 +255,14 @@ def build_tables(cohort: DeviceCohort, depths: DeviceDepths, ind_start: int,
         stats.append(block[1:])
     s_local, s_glob, n_rows, c_max = np.concatenate(stats, axis=1)
     r_pad, c_pad = _bucket(int(n_rows.max()), 4), _bucket(int(c_max.max()), 4)
+    # the split and combo tables contiguous: a group's rows are operands
+    # of the z-sums kernel
     return ComboTables(
-        mask=mask, combos=combos[:, :r_pad], mean_gl=mean_gl[:, :r_pad],
-        read_probs=read_probs[:, :r_pad],
-        rows_by_depth=rbd[:, :-1].reshape(n, c_all, c_all)[:, :c_pad, :c_pad],
+        mask=mask, combos=combos[:, :r_pad],
+        mean_gl=mean_gl[:, :r_pad].contiguous(),
+        read_probs=read_probs[:, :r_pad].contiguous(),
+        rows_by_depth=rbd[:, :-1].reshape(n, c_all, c_all)[:, :c_pad, :c_pad]
+        .contiguous(),
         n_rows=n_rows, s_local=s_local, s_glob=s_glob)
 
 
@@ -338,10 +345,13 @@ def _run_blocks(
     device ``[B, S]`` AF panel for the block's kept sites and the ``[B]``
     EM iteration counts behind it.  With a ``timer``
     (:class:`wgsassign_tpu_torch.obs.profiling.RunTimer`) the tables, the AF
-    groups and the z-sums blocks are timed as the phases ``zscore_tables``,
+    groups and their z sums are timed as the phases ``zscore_tables``,
     ``zscore_af`` and ``zscore_sums``; they are also the spans
     ``wgsa.zscore.tables``, ``wgsa.zscore.em`` and ``wgsa.zscore.sums``.
-    ``f64_sums`` sums the three z sums in float64 (else float32)."""
+    ``f64_sums`` sums the three z sums in float64 (else float32): one
+    ``zsums`` launch an AF group on a GPU, the plain twin in blocks of
+    individuals on the CPU and under ``--no_pallas``, and one fetch an AF
+    group either way."""
     rt = cohort.runtime
     dev = rt.device
 
@@ -375,60 +385,42 @@ def _run_blocks(
     b_af = int(max(b, min(
         len(inds), AF_GROUP_MAX_INDS, AF_GROUP_BYTES // per_ind_af
     )))
-    sum_dtype = torch.float64 if f64_sums else None
-    ad = depths.counts.view(depths.counts.shape[0], -1, 2)
+    sum_dtype = torch.float64 if f64_sums else torch.float32
+    kernel = rt.use_kernels is not False  # --no_pallas: the plain twin
 
     for glo in range(0, len(inds), b_af):
         g_inds = inds[glo: glo + b_af]
-        g_mask = tables.mask[glo: glo + len(g_inds)]
+        g_n = len(g_inds)
+        g_mask = tables.mask[glo: glo + g_n]
         keep, weight = _kept_slots(g_mask, s_pad)
         g_block = _ZBlock(inds=g_inds, mask=g_mask, keep=keep, weight=weight,
-                          s_glob=tables.s_glob[glo: glo + len(g_inds)]
-                          .astype(F32))
+                          s_glob=tables.s_glob[glo: glo + g_n].astype(F32))
         with phase("zscore_af", "wgsa.zscore.em"):
             af_group, g_iters = af_block_fn(g_block, fill)
             synchronize(dev)
-        out.em_iters[glo: glo + len(g_inds)] = g_iters
-        for lo in range(0, len(g_inds), b):
-            n_real = min(b, len(g_inds) - lo)
-            # padded slots repeat the last real individual
-            rows = torch.arange(lo, lo + b, device=dev).clamp(
-                max=lo + n_real - 1)
-            cols = (rows + (ind_start + glo))[:, None]
-            trow = rows + glo
-            with phase("zscore_sums", "wgsa.zscore.sums"):
-                k = keep.index_select(0, rows)
-                w = weight.index_select(0, rows)
-                depth = (ad[k, cols, 0].to(torch.int32)
-                         + ad[k, cols, 1].to(torch.int32))
-                sums = zscore_sums_batch_compact(
-                    cohort.g0[k, cols], cohort.g1[k, cols],
-                    af_group.index_select(0, rows), w,
-                    torch.where(w > 0, depth, 0),
-                    tables.rows_by_depth.index_select(0, trow),
-                    tables.mean_gl.index_select(0, trow),
-                    tables.read_probs.index_select(0, trow),
-                    sum_dtype=sum_dtype,
-                )
-                # float64 before the sum over the ranks, as on one rank
-                # before ``z`` is formed
-                w_obs, w_mu, w_var = rt.all_reduce_sum(
-                    torch.stack(sums).to(torch.float64)).cpu().numpy()
-            pos0 = glo + lo
-            count("zscore.blocks")
-            count("zscore.launched_slots", b * s_pad)
-            count("zscore.kept_slots",
-                  int(tables.s_local[pos0: pos0 + n_real].sum()))
-            for slot in range(n_real):
-                pos = pos0 + slot
-                _fill(
-                    out, pos,
-                    (w_obs[slot] - w_mu[slot]) / math.sqrt(w_var[slot]),
-                    int(tables.s_glob[pos]),
-                    w_obs[slot], w_mu[slot], w_var[slot],
-                )
-                if verbose:
-                    _print_ind(inds[pos], out, pos)
+        out.em_iters[glo: glo + g_n] = g_iters
+        s_loc = tables.s_local[glo: glo + g_n]
+        with phase("zscore_sums", "wgsa.zscore.sums"):
+            sums = kept_slot_sums(
+                cohort.g0, cohort.g1, depths.counts, ind_start + glo, keep,
+                af_group, s_loc, tables.rows_by_depth[glo: glo + g_n],
+                tables.mean_gl[glo: glo + g_n],
+                tables.read_probs[glo: glo + g_n], sum_dtype, block=b,
+                kernel=kernel)
+            # float64 before the sum over the ranks, as on one rank
+            # before ``z`` is formed
+            w_obs, w_mu, w_var = rt.all_reduce_sum(
+                sums.to(torch.float64)).cpu().numpy()
+        for slot in range(g_n):
+            pos = glo + slot
+            _fill(
+                out, pos,
+                (w_obs[slot] - w_mu[slot]) / math.sqrt(w_var[slot]),
+                int(tables.s_glob[pos]),
+                w_obs[slot], w_mu[slot], w_var[slot],
+            )
+            if verbose:
+                _print_ind(inds[pos], out, pos)
     return out
 
 
