@@ -506,8 +506,8 @@ def loglik_vs_twin(dev, gen, results):
     from wgsassign_tpu_torch import _kernels
     from wgsassign_tpu_torch.ops.loglik import (
         _resident_blocks,
-        _selected_sums,
         loglik_geometry,
+        loglik_partition_sums,
         loglik_sums,
     )
 
@@ -516,7 +516,7 @@ def loglik_vs_twin(dev, gen, results):
     f64 = torch.float64
 
     def _twin(*args):
-        return _selected_sums(*args, f64, kernel=False)
+        return loglik_partition_sums(*args, kernel=False)[:, :, 0]
 
     def case(n, bank, col):
         c, ks = bank.shape[0], col.shape[1]

@@ -4,7 +4,7 @@ JAX package's, on a synthetic 600 x 30 x 3 cohort.
 Tolerances: rtol 1e-5, atol 2e-3 and identical argmax, as
 tests/test_cli.py holds the JAX CLI's log-likelihoods.  The JAX ``*_f64``
 forms add float32 block partials in float64 on the host; the port sums
-every float32 per-site term in float64 on the device; the float32-sum forms
+every float32 per-site term in float64 on the device; the float32 sums
 reduce in another order.
 """
 
@@ -52,29 +52,22 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("form", ["assign_loglik", "assign_loglik_f64"])
-def test_assign_ops_match_jax(form):
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_assign_ops_match_jax(p, dtype):
+    """The one entry over ``af.T`` against the JAX package's unselected
+    forms: ``[N, K]`` at one partition, ``[P, N, K]`` at several."""
     g0, g1, af, sw = _op_inputs()
-    want = np.asarray(getattr(jax_ll, form)(g0, g1, af, sw))
-    got = getattr(loglik, form)(*from_jax_arrays(g0, g1, af, sw,
-                                                 device="cpu"))
-    got = got.numpy() if isinstance(got, torch.Tensor) else got
-    assert got.shape == (N, K)
-    assert got.dtype == (np.float64 if form.endswith("f64") else np.float32)
-    _close(got, want)
-    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
-
-
-@pytest.mark.parametrize("p", [3, 4])
-@pytest.mark.parametrize("form", ["assign_loglik_partitioned",
-                                  "assign_loglik_partitioned_f64"])
-def test_partitioned_ops_match_jax(form, p):
-    g0, g1, af, sw = _op_inputs()
-    want = np.asarray(getattr(jax_ll, form)(g0, g1, af, sw, p))
-    got = getattr(loglik, form)(*from_jax_arrays(g0, g1, af, sw,
-                                                 device="cpu"), p)
-    got = got.numpy() if isinstance(got, torch.Tensor) else got
-    assert got.shape == want.shape == (p, N, K)
+    name = "assign_loglik" + ("_partitioned" if p > 1 else "")
+    jax_form = getattr(jax_ll, name + ("_f64" if dtype == "float64" else ""))
+    want = np.asarray(jax_form(g0, g1, af, sw, *([p] if p > 1 else [])))
+    t = from_jax_arrays(g0, g1, af, sw, device="cpu")
+    got = loglik.loglik_partition_sums(
+        t[0], t[1], *loglik.identity_columns(N, t[2]), t[3], p,
+        getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (N, K, p)
+    got = got.permute(2, 0, 1).numpy()  # [P, N, K]
+    want = want.reshape(p, N, K)
     _close(got, want)
     np.testing.assert_array_equal(got.sum(0).argmax(1), want.sum(0).argmax(1))
 

@@ -82,7 +82,8 @@ def test_runtime_probes_once(cuda):
 
     rt = make_runtime(cuda)
     before = _kernels.launches["probe"]
-    assert rt.kernels_enabled() and rt.kernels_enabled()
+    rt.load_kernels()
+    rt.load_kernels()
     assert _kernels.launches["probe"] == before + 1
 
 
@@ -491,10 +492,11 @@ def _loglik_operands(dev, m, n, c, ks, pad, seed):
 
 
 def _loglik_pair(args, p, kernel):
-    """``(ll [N, Ks], parts [N, P, Ks])`` float64 by the kernel or by the
+    """``(ll [N, Ks], parts [N, Ks, P])`` float64 by the kernel or by the
     plain form on the card."""
-    return ll_ops.assign_loglik_selected_partitioned_f64(*args, p,
-                                                         kernel=kernel)
+    parts = ll_ops.loglik_partition_sums(*args, p, kernel=kernel)
+    parts = parts.cpu().numpy()
+    return parts.sum(axis=2), parts
 
 
 @pytest.mark.parametrize("m,n,c,ks,p", [
@@ -553,9 +555,9 @@ def test_loglik_f32_sums_match_twin(cuda, p):
     """``--f32_sums``: float32 sums in the kernel's order against the plain
     form's, at the tolerances of the analyses' card-vs-CPU tests."""
     args = _loglik_operands(cuda, 4000, 40, 3, 3, 0, 60)
-    got = ll_ops.assign_loglik_selected_partitioned(*args, p)
-    want = ll_ops.assign_loglik_selected_partitioned(*args, p, kernel=False)
-    for g, w in zip(got, want):
+    got = ll_ops.loglik_partition_sums(*args, p, torch.float32)
+    want = ll_ops.loglik_partition_sums(*args, p, torch.float32, kernel=False)
+    for g, w in ((got.sum(dim=2), want.sum(dim=2)), (got, want)):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, rtol=1e-5, atol=2e-3)
 
@@ -739,14 +741,14 @@ def test_no_pallas_runs_no_kernel_on_the_card(cuda):
     popmap = population_map(beagle.sample_names,
                             [f"pop{i % 3}" for i in range(30)])
     runs = {}
-    for use_kernels in (False, None):
+    for use_kernels in (False, True):
         _kernels.launches.clear()
         cohort = to_device(beagle, make_runtime(cuda, use_kernels=use_kernels))
         ref = estimate_reference_af(beagle, popmap, cohort=cohort)
         loo = leave_one_out(beagle, ref.af, popmap, cohort=cohort,
                             af_t_dev=ref.af_t_dev)
         runs[use_kernels] = (ref, loo, dict(_kernels.launches))
-    plain, fused = runs[False], runs[None]
+    plain, fused = runs[False], runs[True]
     assert not plain[2].get("em_chunk") and not plain[2].get("loo_chunk")
     assert not plain[2].get("loglik")
     assert fused[2]["em_chunk"] and fused[2]["loo_chunk"]
@@ -759,14 +761,14 @@ def test_no_pallas_runs_no_kernel_on_the_card(cuda):
 
     zbeagle, zpopmap, ad = _jittered_cohort(20_000, 30, 3, 25)
     zruns = {}
-    for use_kernels in (False, None):
+    for use_kernels in (False, True):
         _kernels.launches.clear()
         cohort = to_device(zbeagle,
                            make_runtime(cuda, use_kernels=use_kernels))
         z = reference_z_scores(zbeagle, upload_allele_depths(ad, cohort),
                                zpopmap, cohort=cohort)
         zruns[use_kernels] = (z, dict(_kernels.launches))
-    (zp, zp_counts), (zf, zf_counts) = zruns[False], zruns[None]
+    (zp, zp_counts), (zf, zf_counts) = zruns[False], zruns[True]
     assert not any(zp_counts.get(k) for k in (
         "ztables_bin", "ztables_filter", "zloo_chunk", "sites_chunk",
         "zsums"))

@@ -2,8 +2,8 @@
 
 The JAX ``*_f64`` functions add float32 block partial sums in float64 on the
 host; the port sums every float32 per-site term in float64 on the device.
-The two round differently, so they agree to rtol 1e-5.  The float32-sum
-forms are compared at the same tolerance.
+The two round differently, so they agree to rtol 1e-5.  The float32 sums
+are compared at the same tolerance.
 """
 
 import numpy as np
@@ -48,36 +48,23 @@ def test_selected_f64_matches_jax(k):
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
-def test_selected_f32_matches_jax():
-    g0, g1, bank, col_idx, sw = _inputs()
-    ref = np.asarray(jax_ll.assign_loglik_selected(g0, g1, bank, col_idx, sw))
-    got = loglik.assign_loglik_selected(
-        *from_jax_arrays(g0, g1, bank, col_idx, sw, device="cpu"))
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
-
-
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("p", [1, 4])
-def test_selected_partitioned_f64_matches_jax(p):
+def test_partition_sums_match_jax(p, dtype):
+    """The one entry against the JAX package's partitioned selected forms,
+    in float32 and float64 sums, with and without partitions."""
     g0, g1, bank, col_idx, sw = _inputs()
-    ll_ref, parts_ref = jax_ll.assign_loglik_selected_partitioned_f64(
-        g0, g1, bank, col_idx, sw, p)
-    ll, parts = loglik.assign_loglik_selected_partitioned_f64(
-        *from_jax_arrays(g0, g1, bank, col_idx, sw, device="cpu"), p)
-    assert parts.shape == (12, p, 3)
-    np.testing.assert_allclose(ll, ll_ref, rtol=1e-5)
-    np.testing.assert_allclose(parts, parts_ref, rtol=1e-5)
-
-
-def test_selected_partitioned_f32_matches_jax():
-    g0, g1, bank, col_idx, sw = _inputs()
-    ll_ref, parts_ref = jax_ll.assign_loglik_selected_partitioned(
-        g0, g1, bank, col_idx, sw, 4)
-    ll, parts = loglik.assign_loglik_selected_partitioned(
-        *from_jax_arrays(g0, g1, bank, col_idx, sw, device="cpu"), 4)
-    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_ref), rtol=1e-5)
-    np.testing.assert_allclose(parts.numpy(), np.asarray(parts_ref),
+    jax_form = getattr(jax_ll, "assign_loglik_selected_partitioned"
+                       + ("_f64" if dtype == "float64" else ""))
+    ll_ref, parts_ref = jax_form(g0, g1, bank, col_idx, sw, p)
+    got = loglik.loglik_partition_sums(
+        *from_jax_arrays(g0, g1, bank, col_idx, sw, device="cpu"), p,
+        getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (12, 3, p)
+    np.testing.assert_allclose(got.sum(dim=2).numpy(), np.asarray(ll_ref),
                                rtol=1e-5)
+    np.testing.assert_allclose(got.permute(0, 2, 1).numpy(),
+                               np.asarray(parts_ref), rtol=1e-5)
 
 
 def test_individual_blocks_do_not_change_sums(monkeypatch):
@@ -94,7 +81,7 @@ def test_individual_blocks_do_not_change_sums(monkeypatch):
 def test_partitions_need_a_padded_site_axis():
     g0, g1, bank, col_idx, sw = _inputs(m=241, pad=1)
     with pytest.raises(ValueError, match="multiple of num_partitions"):
-        loglik.assign_loglik_selected_partitioned_f64(
+        loglik.loglik_partition_sums(
             *from_jax_arrays(g0, g1, bank, col_idx, sw, device="cpu"), 4)
 
 
@@ -163,9 +150,7 @@ def test_cpu_tensors_take_the_plain_form(p):
     launches nothing."""
     args = from_jax_arrays(*_inputs(), device="cpu")
     before = dict(_kernels.launches)
-    got = loglik.assign_loglik_selected_partitioned_f64(*args, p)
-    want = loglik.assign_loglik_selected_partitioned_f64(*args, p,
-                                                         kernel=False)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
+    got = loglik.loglik_partition_sums(*args, p)
+    want = loglik.loglik_partition_sums(*args, p, kernel=False)
+    assert torch.equal(got, want)
     assert dict(_kernels.launches) == before

@@ -26,6 +26,7 @@ from wgsassign_tpu.io.beagle import BeagleData
 from wgsassign_tpu.io.ids import population_map
 from wgsassign_tpu.io.synth import synth_cohort
 from wgsassign_tpu.parallel.mesh import make_runtime as jax_runtime
+from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.models import loo as tloo
 from wgsassign_tpu_torch.models import zscore as tz
 from wgsassign_tpu_torch.models.common import to_device
@@ -118,15 +119,19 @@ def test_loo_above_the_bound_stays_in_the_chunked_em(data, jax_plain,
 def test_use_kernels_picks_the_engine(data, jax_plain, logged, use_kernels,
                                       engine):
     """``Runtime.use_kernels`` False (--no_pallas) runs the plain ops with no
-    warning; True (--use_pallas) and None the chunked EMs."""
+    warning; True (--use_pallas) and the default (None: not passed) the
+    chunked EMs."""
     beagle, popmap, _ = data
     _, ref, loo_ref = jax_plain
-    rt = make_runtime("cpu", use_kernels=use_kernels)
-    assert rt.chunked_em() is (use_kernels is not False)
-    assert rt.kernels_enabled() is False  # the CPU launches no kernel
+    kw = {} if use_kernels is None else {"use_kernels": use_kernels}
+    rt = make_runtime("cpu", **kw)
+    assert rt.use_kernels is (engine != "plain")
+    before = dict(_kernels.launches)
+    rt.load_kernels()  # the CPU builds, probes and launches nothing
+    assert dict(_kernels.launches) == before
     cohort = to_device(beagle, rt)
     af = estimate_reference_af(beagle, popmap, cohort=cohort)
-    assert af.engine == ("plain" if use_kernels is False else "em_chunk")
+    assert af.engine == ("plain" if engine == "plain" else "em_chunk")
     np.testing.assert_array_equal(af.iters, ref.iters)
     np.testing.assert_allclose(af.af, ref.af, rtol=0, atol=1e-5)
     res = tloo.leave_one_out(beagle, af.af, popmap, cohort=cohort,

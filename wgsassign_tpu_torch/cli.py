@@ -258,11 +258,9 @@ def _run(args, device, ranks):
     setup_logging(args.log_level)  # a spawned rank starts unconfigured
     log.info("native builds (CUDA kernels, Beagle reader) under %s",
              build_base())
-    use_kernels = True if args.use_pallas else (
-        False if args.no_pallas else None)
     runtime = make_runtime(device, fast_math=not args.no_fast_em,
                            debug_checks=args.debug_checks,
-                           use_kernels=use_kernels, ranks=ranks)
+                           use_kernels=not args.no_pallas, ranks=ranks)
     stdout = sys.stdout
     devnull = None
     if not runtime.is_primary():

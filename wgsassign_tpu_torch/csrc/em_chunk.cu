@@ -54,13 +54,9 @@
 //   f = EPS, whose weight is exactly 0 and whose update is EPS again.
 #include "common.cuh"
 
-#ifndef WG_EM_LANES
-#define WG_EM_LANES 8
-#endif
-
 namespace {
 
-constexpr int L = WG_EM_LANES;  // ops/em_chunk.py::EM_LANES
+constexpr int L = 8;  // ops/em_chunk.py::EM_LANES
 
 template <bool FAST>
 __global__ void __launch_bounds__(16 * L) em_chunk_kernel(

@@ -56,14 +56,10 @@
 //   without a second buffer.
 #include "common.cuh"
 
-#ifndef WG_LOO_JB
-#define WG_LOO_JB 4
-#endif
-
 namespace {
 
 constexpr int LOO_SITES = WG_TILE_SITES;  // ops/loo_chunk.py::LOO_SITES
-constexpr int JB = WG_LOO_JB;  // ops/loo_chunk.py::LOO_PROBLEM_TILE
+constexpr int JB = 4;  // ops/loo_chunk.py::LOO_PROBLEM_TILE
 
 template <bool FAST, bool STAGED>
 __global__ void __launch_bounds__(256) loo_chunk_kernel(

@@ -4,7 +4,7 @@
 // wgsassign_tpu/ops/pallas_emmaf.py::_mosaic_warmup, the trivial Pallas
 // kernels that chose the engine path and warmed the Mosaic compiler.  Here
 // it proves, once after the library loads, that the library's code runs on
-// this card (Runtime.kernels_enabled rests on it).  Bound: launch latency
+// this card (Runtime.load_kernels rests on it).  Bound: launch latency
 // only, an (8, 128) float32 tile.
 #include "common.cuh"
 

@@ -45,9 +45,8 @@
 //   compiler keeps the unrolled weights in order around them, so the
 //   resident warps hide the latency.  The sum is taken in ascending member
 //   order as the twin's.  1 - f is hoisted out of the loop; f * (1 - f) is
-//   not (it would round otherwise).  g2 = 1 - g0 - g1 is rebuilt in registers (SITES_LAYOUT 0, two planes;
-//   1 keeps (g0, g1) as one 8-byte pair, 2 keeps g2 as a third plane: the
-//   tuning tool times all three).
+//   not (it would round otherwise).  g2 = 1 - g0 - g1 is rebuilt in
+//   registers, so two planes are staged.
 // - Each warp's lane 0 writes its per-iteration sums into
 //   sq_part[32-site tile, T, B]; the caller sums the tiles in one fixed
 //   order.  No scratch in shared memory and no float atomics: the
@@ -62,18 +61,10 @@
 //   slot's column and contribute nothing.
 #include "common.cuh"
 
-#ifndef WG_SITES_UNROLL
-#define WG_SITES_UNROLL 8
-#endif
-#ifndef WG_SITES_LAYOUT
-#define WG_SITES_LAYOUT 0
-#endif
-
 namespace {
 
-constexpr int SITES_UNROLL = WG_SITES_UNROLL;
-constexpr int SITES_LAYOUT = WG_SITES_LAYOUT;  // ops/sites_chunk.py
-constexpr int PLANES = SITES_LAYOUT == 2 ? 3 : 2;
+constexpr int SITES_UNROLL = 8;
+constexpr int PLANES = 2;  // ops/sites_chunk.py::SITES_PLANES
 
 // The staged GL triple of packed member row i at this thread's site; sg
 // points at the thread's column of the TS-site tile, n_rows is the number of
@@ -82,19 +73,9 @@ template <int TS>
 __device__ __forceinline__ void staged_gl(const float* __restrict__ sg, int i,
                                           int n_rows, float& a, float& b,
                                           float& c) {
-  if constexpr (SITES_LAYOUT == 1) {
-    const float2 v = reinterpret_cast<const float2*>(sg)[i * TS];
-    a = v.x;
-    b = v.y;
-  } else {
-    a = sg[i * TS];
-    b = sg[(n_rows + i) * TS];
-  }
-  if constexpr (SITES_LAYOUT == 2) {
-    c = sg[(2 * n_rows + i) * TS];
-  } else {
-    c = 1.0f - a - b;
-  }
+  a = sg[i * TS];
+  b = sg[(n_rows + i) * TS];
+  c = 1.0f - a - b;
 }
 
 // Sum of the n_rows staged members' weights under f, in ascending order.
@@ -227,23 +208,7 @@ __global__ void __launch_bounds__(32 * W) sites_chunk_kernel(
     packed = head[1] != 0;
 
     const long long panel = (long long)b * P * S_total + s0;
-    if (SITES_LAYOUT == 1 && s0 + TS <= S_total) {
-      // pairs interleave the two planes: 4-byte copies, one site each
-      const int per_plane = P * TS;
-      for (int e = tid; e < 2 * per_plane; e += TS) {
-        const int plane = e >= per_plane;
-        const int ee = e - plane * per_plane;
-        const int p = ee / TS;
-        const int c = ee % TS;
-        const unsigned word = bits[p >> 5];
-        if (!((word >> (p & 31)) & 1u)) continue;
-        const int i = pre[p >> 5] + __popc(word & ((1u << (p & 31)) - 1u));
-        const float* src =
-            (plane ? g1p : g0p) + panel + (long long)p * S_total + c;
-        cp_async_4(sg + 2 * (i * TS + c) + plane, src);
-      }
-      cp_async_wait_all();
-    } else if (SITES_LAYOUT != 1 && aligned && s0 + TS <= S_total) {
+    if (aligned && s0 + TS <= S_total) {
       // a row of the tile is TS / 4 16-byte copies per plane, consecutive
       // threads on consecutive chunks
       constexpr int CPR = TS / 4;
@@ -271,23 +236,13 @@ __global__ void __launch_bounds__(32 * W) sites_chunk_kernel(
           const long long at = panel + (long long)p * S_total + c;
           const float a = in ? g0p[at] : 1.0f;
           const float g = in ? g1p[at] : 0.0f;
-          if constexpr (SITES_LAYOUT == 1) {
-            reinterpret_cast<float2*>(sg)[i * TS + c] = make_float2(a, g);
-          } else {
-            sg[i * TS + c] = a;
-            sg[(n_rows + i) * TS + c] = g;
-          }
+          sg[i * TS + c] = a;
+          sg[(n_rows + i) * TS + c] = g;
         }
       }
     }
     __syncthreads();
-    if constexpr (SITES_LAYOUT == 2) {
-      for (int e = tid; e < n_rows * TS; e += TS) {
-        sg[2 * n_rows * TS + e] = 1.0f - sg[e] - sg[n_rows * TS + e];
-      }
-      __syncthreads();
-    }
-    col = sg + (SITES_LAYOUT == 1 ? 2 * tid : tid);
+    col = sg + tid;
   } else {
     // every non-zero mask value 1.0?  Each warp finds out for itself.
     for (int p = lane; p < P; p += 32) {

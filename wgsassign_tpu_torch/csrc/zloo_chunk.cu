@@ -48,13 +48,9 @@
 //   float atomics: the convergence decision reads these sums.
 #include "common.cuh"
 
-#ifndef WG_ZLOO_JB
-#define WG_ZLOO_JB 4
-#endif
-
 namespace {
 
-constexpr int JB = WG_ZLOO_JB;  // ops/zloo_chunk.py::ZLOO_PROBLEM_TILE
+constexpr int JB = 4;  // ops/zloo_chunk.py::ZLOO_PROBLEM_TILE
 
 // One update of the first NB problems of a tile (lv: their left-out rows,
 // each in [0, n_real], n_real leaving nothing out).

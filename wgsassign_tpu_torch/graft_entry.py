@@ -22,7 +22,10 @@ import torch
 from torch import nn
 
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk
-from wgsassign_tpu_torch.ops.loglik import assign_loglik
+from wgsassign_tpu_torch.ops.loglik import (
+    identity_columns,
+    loglik_partition_sums,
+)
 
 # the example shape of the JAX package's entry()
 ENTRY_M, ENTRY_N, ENTRY_K = 1024, 64, 4
@@ -75,7 +78,8 @@ class ForwardStep(nn.Module):
     ``em_chunk`` kernel on a card, its twin on the CPU) in the canonical
     weight form of the JAX package's ``em_weights``; ``chunk_op`` replaces
     it where a check compares the kernel with its twin on the card.  The
-    panel is :func:`assign_loglik` (the ``loglik`` kernel on a card).
+    panel is :func:`loglik_partition_sums` over :func:`identity_columns`
+    (the ``loglik`` kernel on a card).
     """
 
     def __init__(self, chunk_op=em_chunk):
@@ -93,7 +97,10 @@ class ForwardStep(nn.Module):
         ft, _ = self.chunk_op(g0, g1, f.t().contiguous(), pop_index,
                               inv_counts, limits, 1, False)
         f_new = ft.t().contiguous()
-        return f_new, assign_loglik(g0, g1, f_new, site_weight)
+        ll = loglik_partition_sums(
+            g0, g1, *identity_columns(g0.shape[1], f_new), site_weight,
+            dtype=torch.float32)
+        return f_new, ll[:, :, 0]
 
 
 def entry(device="cuda:0"):
@@ -130,13 +137,15 @@ def _dryrun_step(rt, problem) -> dict:
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(rt.device)
 
-    rt.chunked_em()  # on a card: build, load and probe the kernels
+    rt.load_kernels()  # on a card: build, load and probe the kernels
     g0_d, g1_d, sw_d = put(g0[lo:hi]), put(g1[lo:hi]), put(site_weight[lo:hi])
     ft, iters, converged = em_maf_pops_fused(
         g0_d, g1_d, membership, sw_d, m, DRY_EM_ITERS, 0.0,
         return_device_panel=True, reduce=reduce)
     f = clamp_af(ft.t(), membership.sum(axis=0))
-    ll = assign_loglik(g0_d, g1_d, f, sw_d, reduce)
+    ll = loglik_partition_sums(g0_d, g1_d, *identity_columns(g0_d.shape[1], f),
+                               sw_d, dtype=torch.float32,
+                               reduce=reduce)[:, :, 0]
     f_obs, ne_obs, ne_ind = fisher_obs_pops(
         g0_d, g1_d, f, put(membership), put(pop_index), sw_d, m)
     if reduce is not None:

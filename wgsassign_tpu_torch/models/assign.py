@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from wgsassign_tpu_torch.io.beagle import BeagleData
 from wgsassign_tpu_torch.models.common import (
@@ -21,11 +22,10 @@ from wgsassign_tpu_torch.models.common import (
 )
 from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.loglik import (
-    assign_loglik,
     assign_loglik_f64,
-    assign_loglik_partitioned,
-    assign_loglik_partitioned_f64,
     check_loglik_inputs,
+    identity_columns,
+    loglik_partition_sums,
 )
 from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
 
@@ -62,22 +62,20 @@ def assignment_loglikelihoods(
     if rt.debug_checks:
         check_loglik_inputs(*args, reduce=reduce)
     count("host_syncs")
-    kw = dict(reduce=reduce, kernel=rt.use_kernels is not False)
+    kw = dict(reduce=reduce, kernel=rt.use_kernels)
     with span("wgsa.loglik.pass"):
-        if num_partitions <= 1:
-            if f64_sums:
-                ll = assign_loglik_f64(*args, **kw)
-            else:
-                ll = assign_loglik(*args, **kw).cpu().numpy()
-            return ll.astype(np.float32)
-        if f64_sums:
-            parts = assign_loglik_partitioned_f64(*args, num_partitions,
-                                                  **kw)
-        else:
-            parts = assign_loglik_partitioned(*args, num_partitions,
-                                              **kw).cpu().numpy()
-    ll = parts.sum(axis=0).astype(np.float32)  # [N, K]
+        if num_partitions <= 1 and f64_sums:
+            return assign_loglik_f64(*args, **kw).astype(np.float32)
+        p = max(num_partitions, 1)
+        parts = loglik_partition_sums(
+            cohort.g0, cohort.g1, *identity_columns(cohort.n_inds, af_dev),
+            cohort.site_weight, p,
+            torch.float64 if f64_sums else torch.float32,
+            **kw).cpu().numpy()  # [N, K, P]
+    if num_partitions <= 1:
+        return parts[:, :, 0].astype(np.float32)
+    ll = parts.sum(axis=2).astype(np.float32)  # [N, K]
     n, k = ll.shape
-    parts_nk = np.transpose(parts.astype(np.float32), (1, 0, 2)).reshape(
+    parts_nk = np.transpose(parts.astype(np.float32), (0, 2, 1)).reshape(
         n * num_partitions, k)
     return ll, parts_nk

@@ -60,11 +60,9 @@ from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.emmaf import _EM_EPS, em_maf_loo_group
 from wgsassign_tpu_torch.ops.fused_em import em_maf_loo_group_fused
 from wgsassign_tpu_torch.ops.loglik import (
-    assign_loglik_selected,
     assign_loglik_selected_f64,
-    assign_loglik_selected_partitioned,
-    assign_loglik_selected_partitioned_f64,
     check_loglik_inputs,
+    loglik_partition_sums,
 )
 from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
 from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
@@ -134,7 +132,7 @@ def leave_one_out(
     if cohort is None:
         cohort = to_device(beagle, runtime, site_multiple=num_partitions)
     rt = cohort.runtime
-    rt.chunked_em()  # on a GPU: build, load and probe, or raise
+    rt.load_kernels()  # on a GPU: build, load and probe, or raise
     n = cohort.n_inds
     m_pad = cohort.m_pad
     m_real = cohort.m_real
@@ -225,7 +223,7 @@ def leave_one_out(
             with span("wgsa.loglik.selected"):
                 ll[:, j], parts_nk[:, :, j] = _column_loglik(
                     src, mini_bank, col_j, num_partitions, f64_sums, reduce,
-                    kernel=rt.use_kernels is not False)
+                    kernel=rt.use_kernels)
             iters[members] = it_p
             converged[members] = conv_p
             if verbose:
@@ -265,25 +263,21 @@ def _column_loglik(src, mini_bank, col_j, num_partitions, f64_sums,
                    reduce, kernel=True):
     """One population's LL column against its mini-bank, fetched to the
     host: ``(ll [N], parts [N, P])`` (P = 1 without partitions).
-    ``kernel``: the ``loglik`` kernel on a GPU (False: the plain form)."""
+    ``kernel``: the ``loglik`` kernel on a GPU (False: the plain form).
+    Under ``--f32_sums`` the partitions are added on the device."""
     args = (src.g0, src.g1, mini_bank, col_j, src.site_weight)
-    kw = dict(reduce=reduce, kernel=kernel)
     count("host_syncs")
-    if num_partitions <= 1:
-        if f64_sums:
-            ll_j = assign_loglik_selected_f64(*args, **kw)
-        else:
-            ll_j = assign_loglik_selected(*args, **kw).cpu().numpy()
-        ll_j = np.asarray(ll_j)[:, 0]
+    if num_partitions <= 1 and f64_sums:
+        ll_j = assign_loglik_selected_f64(*args, reduce, kernel)[:, 0]
         return ll_j, ll_j[:, None]
+    parts = loglik_partition_sums(
+        *args, max(num_partitions, 1),
+        torch.float64 if f64_sums else torch.float32, reduce,
+        kernel)[:, 0]  # [N, P]
     if f64_sums:
-        ll_j, parts_j = assign_loglik_selected_partitioned_f64(
-            *args, num_partitions, **kw)
-    else:
-        ll_jd, parts_jd = assign_loglik_selected_partitioned(
-            *args, num_partitions, **kw)
-        ll_j, parts_j = ll_jd.cpu().numpy(), parts_jd.cpu().numpy()
-    return np.asarray(ll_j)[:, 0], np.asarray(parts_j)[:, :, 0]
+        parts = parts.cpu().numpy()
+        return parts.sum(axis=1), parts
+    return parts.sum(dim=1).cpu().numpy(), parts.cpu().numpy()
 
 
 def _loo_group_em(rt, cohort, members_d, m_real, max_iter, tol,
@@ -296,7 +290,7 @@ def _loo_group_em(rt, cohort, members_d, m_real, max_iter, tol,
         g0p, g1p = _member_panels(cohort.g0, cohort.g1, members_d)
     reduce = rt.all_reduce_sum
     with span("wgsa.loo.em"):
-        if not rt.chunked_em():
+        if not rt.use_kernels:
             f, iters, conv = em_maf_loo_group(
                 g0p, g1p, cohort.site_weight, m_real, max_iter, tol,
                 reduce=reduce)

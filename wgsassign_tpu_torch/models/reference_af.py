@@ -77,7 +77,8 @@ def estimate_reference_af(
         cohort = to_device(beagle, runtime)
     rt = cohort.runtime
     with span("wgsa.refaf.em"):
-        if rt.chunked_em():  # on a GPU: build, load and probe, or raise
+        rt.load_kernels()  # on a GPU: build, load and probe, or raise
+        if rt.use_kernels:
             engine = "em_chunk"
             ft, iters, converged = em_maf_pops_fused(
                 cohort.g0,

@@ -181,7 +181,6 @@ def build_tables(cohort: DeviceCohort, depths: DeviceDepths, ind_start: int,
     too little, with the reference's message."""
     rt = cohort.runtime
     dev = rt.device
-    kernel = rt.use_kernels is not False  # --no_pallas: the plain twins
     n = ind_end - ind_start
     width = int(depths.col_max[ind_start:ind_end].max()) + 1
     r, d = width * width, 2 * width - 1
@@ -206,7 +205,7 @@ def build_tables(cohort: DeviceCohort, depths: DeviceDepths, ind_start: int,
         b = min(step, n - lo)
         col0 = ind_start + lo
         part = combo_bins(depths.counts, cohort.g0, cohort.g1, col0, b,
-                          cohort.n_local, width, kernel=kernel)
+                          cohort.n_local, width, kernel=rt.use_kernels)
         sums = rt.all_reduce_sum(part.sum(0)).to(dev)  # [b, R, 4]
         del part
         cnt = sums[..., 3]
@@ -226,7 +225,7 @@ def build_tables(cohort: DeviceCohort, depths: DeviceDepths, ind_start: int,
         dcount = site_filter(depths.counts, cohort.g0, cohort.g1, col0, b,
                              cohort.n_local, width, keep.to(torch.uint8),
                              amax.to(torch.uint8), meanv, mask[lo:lo + b],
-                             GL_MEAN_TOLERANCE, kernel=kernel)
+                             GL_MEAN_TOLERANCE, kernel=rt.use_kernels)
         local = dcount.sum(0, dtype=torch.long)  # [b, D] kept sites by depth
         glob = rt.all_reduce_sum(local).to(dev)
         present = glob > 0
@@ -386,7 +385,6 @@ def _run_blocks(
         len(inds), AF_GROUP_MAX_INDS, AF_GROUP_BYTES // per_ind_af
     )))
     sum_dtype = torch.float64 if f64_sums else torch.float32
-    kernel = rt.use_kernels is not False  # --no_pallas: the plain twin
 
     for glo in range(0, len(inds), b_af):
         g_inds = inds[glo: glo + b_af]
@@ -406,7 +404,7 @@ def _run_blocks(
                 af_group, s_loc, tables.rows_by_depth[glo: glo + g_n],
                 tables.mean_gl[glo: glo + g_n],
                 tables.read_probs[glo: glo + g_n], sum_dtype, block=b,
-                kernel=kernel)
+                kernel=rt.use_kernels)
             # float64 before the sum over the ranks, as on one rank
             # before ``z`` is formed
             w_obs, w_mu, w_var = rt.all_reduce_sum(
@@ -460,7 +458,7 @@ def reference_z_scores(
         cohort = to_device(beagle, runtime)
     depths = _as_depths(ad, cohort)
     rt = cohort.runtime
-    chunked = rt.chunked_em()  # on a GPU: build, load and probe, or raise
+    rt.load_kernels()  # on a GPU: build, load and probe, or raise
     reduce = rt.all_reduce_sum
     engines = set()
     dev = rt.device
@@ -505,7 +503,7 @@ def reference_z_scores(
                                       torch.from_numpy(members).to(dev))
             w_full = block.mask.index_select(0, sel).to(torch.float32)
             s_real_g = np.maximum(block.s_glob[slots], 1.0).astype(F32)
-            if chunked:
+            if rt.use_kernels:
                 engines.add("zloo_chunk")
                 f, it, _ = em_maf_loo_subset_fused(
                     g0p, g1p, leave, w_full, s_real_g, max_iter, tol,
@@ -543,7 +541,7 @@ def reference_z_scores(
         g0p, g1p = cohort.g0[k, mm], cohort.g1[k, mm]
         s_real_g = np.maximum(block.s_glob, 1.0)
         mask_d = torch.from_numpy(mem_mask).to(dev)
-        if chunked:
+        if rt.use_kernels:
             engines.add("sites_chunk")
             f, it, _ = em_maf_sites_batch_fused(
                 g0p, g1p, mem_mask, block.weight, s_real_g, max_iter, tol,

@@ -7,17 +7,20 @@ Per (site, individual, population) the assignment likelihood under HWE is
 and the log-likelihood sums the float32 per-site logs over sites.  The sum
 is taken in float64 on the device, as the reference's ``np.sum(...,
 dtype=float)`` does; the JAX package's f32 block partials and host combine
-existed only because the TPU has no float64.  The ``*_f64`` functions are
-that form; the plain ones sum in float32 (``--f32_sums``).
+existed only because the TPU has no float64.  Under ``--f32_sums`` it is
+taken in float32.
 
-"Selected" forms give each (individual, population) pair its own AF row of
-a site-minor bank ``af_bank_t [C, M]`` through ``col_idx [N, K]`` -- the
-leave-one-out path's in-place-AF semantics.  The unselected forms
-(``--get_pop_like``) are the selected ones over the bank ``af.T`` with
-``col_idx[i, k] = k``.  Individuals are processed in blocks sized so the
-``[block, K, M]`` float32 temporaries stay within :data:`BLOCK_ELEMENTS`:
-the JAX op fuses the ``[M, N, K]`` product into the site reduction, a
-plain torch broadcast would materialise it (3.6 GB at 1M x 180 x 5).
+:func:`loglik_partition_sums` is the one entry: it gives each (individual,
+population) pair its own AF row of a site-minor bank ``af_bank_t [C, M]``
+through ``col_idx [N, K]`` -- the leave-one-out path's in-place-AF
+semantics.  ``--get_pop_like`` evaluates the bank ``af.T`` with
+``col_idx[i, k] = k`` (:func:`identity_columns`).  Individuals are
+processed in blocks sized so the ``[block, K, M]`` float32 temporaries stay
+within :data:`BLOCK_ELEMENTS`: the JAX op fuses the ``[M, N, K]`` product
+into the site reduction, a plain torch broadcast would materialise it (3.6
+GB at 1M x 180 x 5).  :func:`assign_loglik_f64` and
+:func:`assign_loglik_selected_f64` are its float64, one-partition forms
+returned as NumPy.
 
 On a GPU the sums are the hand-written kernel ``csrc/loglik.cu``
 (:func:`loglik_sums`): one read of the GL planes, each float32 term formed
@@ -165,8 +168,8 @@ def loglik_sums(g0, g1, af_bank_t, col_idx, site_weight,
                 num_partitions: int, dtype):
     """``[N, Ks, P]`` selected partition sums by the ``loglik`` kernel, in
     ``dtype`` (float64, or float32 for ``--f32_sums``): the sums of
-    :func:`_selected_partition_sums` over the same float32 terms, added in
-    the kernel's fixed order.
+    :func:`loglik_partition_sums`'s blocked twin over the same float32
+    terms, added in the kernel's fixed order.
 
     Args (CUDA tensors, contiguous):
       g0, g1: float32 ``[M, N]``.
@@ -219,55 +222,29 @@ def loglik_sums(g0, g1, af_bank_t, col_idx, site_weight,
     return out
 
 
-def _selected_sums(g0, g1, af_bank_t, col_idx, site_weight, dtype,
-                   reduce=None, kernel=True):
-    if kernel and g0.device.type == "cuda":
-        out = loglik_sums(g0, g1, af_bank_t, col_idx, site_weight, 1,
-                          dtype)[:, :, 0]
-    else:
-        n, k = col_idx.shape
-        out = torch.empty((n, k), dtype=dtype, device=g0.device)
-        for rows, ll in _selected_site_ll(g0, g1, af_bank_t, col_idx,
-                                          site_weight):
-            out[rows] = torch.sum(ll, dim=2, dtype=dtype)
-    return out if reduce is None else reduce(out)
-
-
-def assign_loglik_selected(g0, g1, af_bank_t, col_idx, site_weight,
-                           reduce=None, kernel=True):
-    """``[N, K]`` float32 bank-selected log-likelihoods, float32 sums.
+def loglik_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
+                          num_partitions: int = 1, dtype=torch.float64,
+                          reduce=None, kernel=True):
+    """``[N, Ks, P]`` sums of the weighted per-site log-likelihoods, in
+    ``dtype`` (float64, or float32 for ``--f32_sums``), on the operands'
+    device; partition p holds the sites with ``s % P == p`` of the (padded)
+    site axis.
 
     Args:
       g0, g1: float32 ``[M, N]``.
-      af_bank_t: float32 ``[C, M]`` bank of AF rows, site-minor.
-      col_idx: integer ``[N, K]`` -- bank row used for pair (i, k).
-      site_weight: float32 ``[M]``.
+      af_bank_t: float32 ``[C, M]`` bank of AF rows, site-minor
+        (:func:`identity_columns` for one ``[M, K]`` panel).
+      col_idx: integer ``[N, Ks]`` -- bank row used for pair (i, k).
+      site_weight: float32 ``[M]`` (0 for padded sites).
+      reduce: adds the ranks' sums (``Runtime.all_reduce_sum``).
       kernel: False runs the plain blocked form on a GPU too
         (``--no_pallas``); CPU tensors always take it.  The kernel wants
         contiguous operands and an int32 ``col_idx``.
     """
-    return _selected_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                          torch.float32, reduce, kernel)
-
-
-def assign_loglik_selected_f64(g0, g1, af_bank_t, col_idx,
-                               site_weight, reduce=None,
-                               kernel=True) -> np.ndarray:
-    """``[N, K]`` bank-selected log-likelihoods with float64 site sums
-    (the LOO path's sum, reference glassy.py:101).  Returns np.float64."""
-    return _selected_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                          torch.float64, reduce, kernel).cpu().numpy()
-
-
-def _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                             num_partitions: int, dtype, reduce=None,
-                             kernel=True):
-    """``[N, K, P]`` partition sums; partition p holds the sites with
-    ``s % P == p`` of the (padded) site axis."""
     m = g0.shape[0]
     n, k = col_idx.shape
     p = num_partitions
-    if m % p != 0:
+    if p < 1 or m % p != 0:
         raise ValueError(
             f"site axis ({m}) must be padded to a multiple of "
             f"num_partitions ({p})")
@@ -282,84 +259,32 @@ def _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
     return out if reduce is None else reduce(out)
 
 
-def assign_loglik_selected_partitioned(g0, g1, af_bank_t, col_idx,
-                                       site_weight, num_partitions: int,
-                                       reduce=None, kernel=True):
-    """Partitioned form of :func:`assign_loglik_selected`, float32 sums.
-    Returns ``(ll [N, K], parts [N, P, K])`` as float32 tensors."""
-    parts = _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                                     num_partitions, torch.float32, reduce,
-                                     kernel)
-    return parts.sum(dim=2), parts.permute(0, 2, 1).contiguous()
-
-
-def assign_loglik_selected_partitioned_f64(g0, g1, af_bank_t, col_idx,
-                                           site_weight, num_partitions: int,
-                                           reduce=None, kernel=True):
-    """``(ll [N, K], parts [N, P, K])`` with float64 site sums, as NumPy
-    float64 arrays; ``ll`` is the sum of the partition sums."""
-    parts = _selected_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
-                                     num_partitions, torch.float64, reduce,
-                                     kernel)
-    parts = parts.cpu().numpy()
-    return parts.sum(axis=2), np.transpose(parts, (0, 2, 1))
-
-
-# --- unselected forms: every individual against the same [M, K] panel ----
-
-def _identity_columns(n: int, af) -> tuple:
-    """``(bank [K, M], col_idx [N, K])`` that make the selected forms
-    evaluate every individual against every column of ``af [M, K]``."""
+def identity_columns(n: int, af) -> tuple:
+    """``(bank [K, M], col_idx [N, K])`` that make
+    :func:`loglik_partition_sums` evaluate every individual against every
+    column of ``af [M, K]``."""
     k = af.shape[1]
     col_idx = torch.arange(k, dtype=torch.int32, device=af.device)
     return af.t().contiguous(), col_idx.repeat(n, 1)
 
 
-def assign_loglik(g0, g1, af, site_weight, reduce=None, kernel=True):
-    """Full ``[N, K]`` assignment log-likelihood matrix, float32 sums.
-
-    Args:
-      g0, g1: float32 ``[M, N]``.
-      af: float32 ``[M, K]`` population allele frequencies.
-      site_weight: float32 ``[M]`` (0 for padded sites).
-
-    Returns: float32 ``[N, K]`` tensor.  ``kernel`` as for
-    :func:`assign_loglik_selected`.
-    """
-    bank, col_idx = _identity_columns(g0.shape[1], af)
-    return assign_loglik_selected(g0, g1, bank, col_idx, site_weight, reduce,
-                                  kernel)
+def assign_loglik_selected_f64(g0, g1, af_bank_t, col_idx, site_weight,
+                               reduce=None, kernel=True) -> np.ndarray:
+    """``[N, K]`` bank-selected log-likelihoods with float64 site sums
+    (the LOO path's sum, reference glassy.py:101).  Returns np.float64."""
+    return loglik_partition_sums(g0, g1, af_bank_t, col_idx, site_weight,
+                                 reduce=reduce, kernel=kernel)[:, :, 0] \
+        .cpu().numpy()
 
 
 def assign_loglik_f64(g0, g1, af, site_weight, reduce=None,
                       kernel=True) -> np.ndarray:
-    """``[N, K]`` assignment log-likelihoods with float64 site sums
-    (reference glassy.py:38).  Returns np.float64."""
-    bank, col_idx = _identity_columns(g0.shape[1], af)
-    return assign_loglik_selected_f64(g0, g1, bank, col_idx, site_weight,
-                                      reduce, kernel)
-
-
-def assign_loglik_partitioned(g0, g1, af, site_weight, num_partitions: int,
-                              reduce=None, kernel=True):
-    """Per-partition float32 sums ``[P, N, K]``: partition p holds the sites
-    with ``s % P == p``.  The (padded) site count must be a multiple of P."""
-    bank, col_idx = _identity_columns(g0.shape[1], af)
-    parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
-                                     num_partitions, torch.float32, reduce,
-                                     kernel)
-    return parts.permute(2, 0, 1)
-
-
-def assign_loglik_partitioned_f64(g0, g1, af, site_weight,
-                                  num_partitions: int, reduce=None,
-                                  kernel=True) -> np.ndarray:
-    """Partitioned sums ``[P, N, K]`` with float64 site sums, as NumPy."""
-    bank, col_idx = _identity_columns(g0.shape[1], af)
-    parts = _selected_partition_sums(g0, g1, bank, col_idx, site_weight,
-                                     num_partitions, torch.float64, reduce,
-                                     kernel)
-    return np.transpose(parts.cpu().numpy(), (2, 0, 1))
+    """``[N, K]`` assignment log-likelihoods of every individual against
+    ``af [M, K]``, float64 site sums (reference glassy.py:38).  Returns
+    np.float64."""
+    return assign_loglik_selected_f64(
+        g0, g1, *identity_columns(g0.shape[1], af), site_weight, reduce,
+        kernel)
 
 
 def check_loglik_inputs(g0, g1, af, site_weight, reduce=None) -> None:
@@ -371,7 +296,7 @@ def check_loglik_inputs(g0, g1, af, site_weight, reduce=None) -> None:
     population) cells of ``af [M, K]`` with ``like <= 0`` or NaN on
     weighted sites, blocked over individuals like the passes, and raises
     ``ValueError`` with the count."""
-    bank, col_idx = _identity_columns(g0.shape[1], af)
+    bank, col_idx = identity_columns(g0.shape[1], af)
     weighted = site_weight > 0.0
     bad = 0
     for _, like in _selected_site_like(g0, g1, bank, col_idx):

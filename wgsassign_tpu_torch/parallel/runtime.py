@@ -46,10 +46,11 @@ class Runtime:
     # --debug_checks: sanitise the likelihood inputs before the assignment
     # and LOO likelihood passes (ops/loglik.py::check_loglik_inputs)
     debug_checks: bool = False
-    # counterpart of ``use_pallas``: False (--no_pallas) runs the plain EM
-    # ops of ops/emmaf.py; None and True (--use_pallas) run the chunked EMs,
-    # whose chunks are the CUDA kernels on a GPU and their twins on the CPU
-    use_kernels: Optional[bool] = None
+    # counterpart of ``use_pallas``: True runs the chunked EMs, the
+    # likelihood pass and the z-score tables and sums as the CUDA kernels
+    # on a GPU (their plain twins on the CPU); False (--no_pallas) runs the
+    # plain EM ops of ops/emmaf.py and the twins on the device
+    use_kernels: bool = True
     # this process's index among ``world`` processes, each holding one
     # window of the site axis
     rank: int = 0
@@ -59,32 +60,20 @@ class Runtime:
     group: object = field(default=None, repr=False)
     _probed: bool = field(default=False, init=False, repr=False)
 
-    def kernels_enabled(self) -> bool:
-        """True on a CUDA device, after the kernel library is built and
-        loaded and its probe kernel returned ``x + 1`` (once per runtime);
-        False on the CPU, where every kernel wrapper runs its plain PyTorch
-        twin.  On a CUDA device a failed build, load or probe raises: there
-        is no fallback to the twins."""
-        if self.device.type != "cuda":
-            return False
-        if not self._probed:
-            from wgsassign_tpu_torch._kernels import probe
+    def load_kernels(self) -> None:
+        """On a CUDA device with ``use_kernels``: build and load the kernel
+        library and check that its probe kernel returns ``x + 1``, once per
+        runtime; a failed build, load or probe raises (there is no fallback
+        to the twins).  Nothing on the CPU, where every kernel wrapper runs
+        its plain PyTorch twin, or under ``--no_pallas``."""
+        if self.device.type != "cuda" or not self.use_kernels or self._probed:
+            return
+        from wgsassign_tpu_torch._kernels import probe
 
-            probe(self.device)
-            self._probed = True
-            log.info("engine path on %s: hand-written CUDA kernels",
-                     torch.cuda.get_device_name(self.device))
-        return True
-
-    def chunked_em(self) -> bool:
-        """Whether the EMs run chunked (``ops/fused_em.py``: the kernels on
-        a GPU, after :meth:`kernels_enabled` built and probed them, and
-        their twins on the CPU).  False under ``--no_pallas``: the plain ops
-        of ``ops/emmaf.py`` run on the device instead."""
-        if self.use_kernels is False:
-            return False
-        self.kernels_enabled()
-        return True
+        probe(self.device)
+        self._probed = True
+        log.info("engine path on %s: hand-written CUDA kernels",
+                 torch.cuda.get_device_name(self.device))
 
     # -- ranks ---------------------------------------------------------------
     def is_primary(self) -> bool:
@@ -274,7 +263,7 @@ def shutdown_distributed(runtime: Runtime) -> None:
 
 def make_runtime(device="cuda:0", fast_math: bool = True,
                  debug_checks: bool = False,
-                 use_kernels: Optional[bool] = None,
+                 use_kernels: bool = True,
                  ranks: Optional[tuple] = None) -> Runtime:
     """Build the runtime for ``device``; joins the process group first when
     this process is one of several ranks (``ranks`` or the ``WGSA_*``
