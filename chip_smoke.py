@@ -14,10 +14,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
    its path gives it, with both times, the kernel's bound on this card and
    its share of it and the occupancy the CUDA runtime reports (and, for
    the two z-score kernels, the kernel's time at the other EM structure's
-   typical kept fraction, ``zloo_chunk`` with ascending left-out rows and
-   ``sites_chunk`` with half its problems at limit 0; for the likelihood
-   pass ``loglik``, the benchmark's leave-one-out column and assignment
-   call at 5,000,000 sites; for the z-score tables' two passes
+   typical kept fraction, ``zloo_chunk`` with random left-out rows and
+   ``sites_chunk`` with half its problems at limit 0; for the two
+   leave-one-out kernels, one iteration in place as the EM driver launches
+   them, at the loo cell's largest population (49 x 5,000,000) and a
+   z-score EM of 9 of its members, with a stopped problem, and the time of
+   a launch with every problem stopped; for the convergence test
+   ``em_decide``, 16 iterations of the loo cell's partials (156,250 blocks
+   x 49 problems) against its twin, with and without a reduce between its
+   two launches: the same stops and counters, sums bit for bit; for the
+   likelihood pass ``loglik``, the benchmark's leave-one-out column and
+   assignment call at 5,000,000 sites; for the z-score tables' two passes
    ``ztables_bin`` and ``ztables_filter``, the z-score cell's 5,000,000 x
    180 cohort of uint8 read counts, bit for bit; for the z sums ``zsums``,
    one AF group of 32 individuals of that cohort, W = 16, float64 sums to
@@ -25,16 +32,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
 4. the main path, ``--get_reference_af --loo`` through
    ``wgsassign_tpu_torch.cli.main``, on a synthetic gzipped Beagle file of
    1,000,000 sites x 180 individuals x 5 populations (seed 0), checking the
-   output files and that its kernels were launched;
+   output files and that its kernels were launched (``em_decide`` twice
+   for each ``loo_chunk`` launch);
 5. parity on the card at 100,000 sites: reference AF and LOO
-   log-likelihoods from the kernels against the twins;
+   log-likelihoods from the kernels against the twins (the twins' EMs in
+   chunks with the host's convergence test, so ``em_decide`` decides only
+   the kernels' side);
 6. the z-score path on phase 4's cohort, its AF files and a synthetic
    allele-depth file, scoring all 180 individuals: (a)
    ``--get_reference_z_score --get_assignment_z_score`` (the loo-structured
    EM, ``zloo_chunk``), (b) ``--get_reference_z_score
    --single_read_threshold`` (the gathered EM, ``sites_chunk``);
 7. parity on the card at 100,000 sites: reference z-scores in both EM
-   structures from the kernels against the twins, and assignment z-scores
+   structures from the kernels against the twins (the twins' EMs with the
+   host's test, as in phase 5), and assignment z-scores
    on the card against the same run on the CPU;
 8. the other analyses on phase 4's file and AF outputs: (a)
    ``--stream_ingest 0 --get_reference_af --ne_obs --loo``, whose AF and LOO
@@ -160,6 +171,8 @@ KERNELS = {
                    f"{PALLAS}:1174", "6a"),
     "sites_chunk": ("wgsassign_tpu_torch/csrc/sites_chunk.cu",
                     f"{PALLAS}:1068", "6b"),
+    "em_decide": ("wgsassign_tpu_torch/csrc/em_decide.cu",
+                  f"none (the host's numpy test, {PALLAS}:541)", "4"),
     "loglik": ("wgsassign_tpu_torch/csrc/loglik.cu",
                "none (wgsassign_tpu/ops/loglik.py is XLA-fused jnp)", "4"),
     "ztables_bin": ("wgsassign_tpu_torch/csrc/ztables.cu",
@@ -184,6 +197,12 @@ ZT_M, ZT_N, ZT_DEPTH, ZT_CAP = 5_000_000, 180, 2.0, 15
 # the z sums on that cohort: one AF group of the z-score cell (32
 # individuals), float64 sums of the same float32 terms in another order
 ZS_GROUP, ZS_SUM_RTOL = 32, 1e-12
+# the leave-one-out EMs at the benchmark's shapes: the loo cell's largest
+# population (49 members, each a problem) over 5,000,000 sites (156,250
+# blocks of 32), and a z-score EM of that population in one AF group of 32
+# individuals (9 of its members, ascending, on ~87% kept sites)
+STEP_M, STEP_N, STEP_B, STEP_FILL = 5_000_000, 49, 9, 0.87
+DECIDE_ITERS = 16
 
 
 def paths_kernels(path):
@@ -208,9 +227,40 @@ def em_chunk_bound(m, n, k, T, weights):
                  4 * (2 * m * n + 2 * k * m + T * k + 3 * k + n))
 
 
-def updates(limits, T):
-    """Updates the chunk contract asks of problems with these limits."""
-    return float(limits.clamp(0, T).sum())
+def stepped_chunk(step, ft, lim, T):
+    """The twins' chunk of T iterations from the one-iteration kernels: T
+    launches of ``step(f, limits)`` on a copy of ``ft``, problem j running
+    while ``lim[j] > t``.  Returns ``(f, sq [T, P])``, each launch's
+    per-block partials summed in float64 and rounded to float32 (a stopped
+    problem's sum 0), as the EM driver's decision sums them."""
+    import torch
+
+    f = ft.clone()
+    sq = []
+    for t in range(T):
+        run = lim > t
+        part = step(f, run.float())
+        s = torch.sum(part, 0, dtype=torch.float64).to(torch.float32)
+        sq.append(torch.where(run, s, 0.0))
+    return f, torch.stack(sq)
+
+
+def loo_by_steps(g0p, g1p, ft, lim, n_real, T, fast_math=True):
+    """``loo_chunk_twin``'s contract from ``loo_step`` launches."""
+    from wgsassign_tpu_torch.ops.loo_chunk import loo_step
+
+    return stepped_chunk(
+        lambda f, run: loo_step(g0p, g1p, f, run, n_real, fast_math), ft,
+        lim, T)
+
+
+def zloo_by_steps(g0p, g1p, ft, sw, leave, lim, n_real, T, fast_math=True):
+    """``zloo_chunk_twin``'s contract from ``zloo_step`` launches."""
+    from wgsassign_tpu_torch.ops.zloo_chunk import zloo_step
+
+    return stepped_chunk(
+        lambda f, run: zloo_step(g0p, g1p, f, sw, leave, run, n_real,
+                                 fast_math), ft, lim, T)
 
 
 def phase(name, t0, **info):
@@ -278,11 +328,6 @@ def kernels_vs_twins(dev, results):
         em_chunk_geometry,
         em_chunk_twin,
     )
-    from wgsassign_tpu_torch.ops.loo_chunk import (
-        loo_chunk,
-        loo_chunk_geometry,
-        loo_chunk_twin,
-    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -325,35 +370,201 @@ def kernels_vs_twins(dev, results):
         shape=f"M={m} N={n} K={k} T={T} limits=16,16,5,1,0",
     )
     del g0, g1, f_k, f_t
-
-    n_real, p, T = 36, 40, 8
-    g0p, g1p = random_gls(p, m, gen, dev)
-    g0p[n_real:], g1p[n_real:] = 1.0, 0.0
-    ftp = 0.05 + 0.9 * torch.rand((p, m), generator=gen, device=dev)
-    limp = torch.full((p,), float(T), device=dev)
-    limp[3], limp[7], limp[n_real:] = 2.0, 0.0, 0.0
-    errs = []
-    for fast in (True, False):
-        f_k, sq_k = loo_chunk(g0p, g1p, ftp, limp, n_real, T, fast)
-        f_t, sq_t = loo_chunk_twin(g0p, g1p, ftp, limp, n_real, T, fast)
-        errs.append(check_pair(f"loo_chunk fast_math={fast}", f_k, f_t,
-                               sq_k, sq_t))
-    warps, smem = loo_chunk_geometry(n_real)
-    results["loo_chunk"].update(
-        **bound(m * (n_real - 1) * updates(limp, T) * OPS_PER_WEIGHT,
-                4 * (2 * n_real * m + 2 * p * m + T * p + p)),
-        occupancy="{}x{}warps".format(
-            _kernels.occupancy("loo_chunk", dev, warps, smem), warps),
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: loo_chunk(g0p, g1p, ftp, limp, n_real, T), 5),
-        plain_ms=time_ms(
-            lambda: loo_chunk_twin(g0p, g1p, ftp, limp, n_real, T), 2),
-        shape=f"n_real={n_real} P={p} M={m} T={T}",
-    )
-    del g0p, g1p, ftp, f_k, f_t
+    loo_steps_vs_twins(dev, gen, results)
+    decide_vs_twin(dev, gen, results)
     zscore_kernels_vs_twins(dev, gen, results)
     loglik_vs_twin(dev, gen, results)
     ztables_vs_twins(dev, gen, results)
+
+
+def loo_steps_vs_twins(dev, gen, results):
+    """Phase 3, the two leave-one-out kernels as the EM driver launches
+    them, one iteration in place (``loo_step``, ``zloo_step``), against one
+    iteration of their twins at ``STEP_*``: ``ft`` of the running problems
+    to ``FT_ATOL``, the summed partials to ``SQ_RTOL``, a stopped problem's
+    row and partials left as they were (0), and a launch with every limit
+    at 0 (a tail launch, timed apart) writing nothing.  ``zloo_step`` is
+    also timed at the z path's other kept fraction (0.27) and with its
+    left-out rows in random order."""
+    import torch
+
+    from wgsassign_tpu_torch import _kernels
+    from wgsassign_tpu_torch.ops.loo_chunk import (
+        loo_chunk_geometry,
+        loo_chunk_twin,
+        loo_step,
+    )
+    from wgsassign_tpu_torch.ops.zloo_chunk import (
+        zloo_chunk_geometry,
+        zloo_chunk_twin,
+        zloo_step,
+    )
+
+    m, n = STEP_M, STEP_N
+    blocks = -(-m // 32)
+
+    def check(name, step, twin, ft0, lim):
+        run = lim > 0
+        errs = []
+        for fast in (True, False):
+            f_k = ft0.clone()
+            part = step(f_k, lim, fast)
+            if tuple(part.shape) != (blocks, ft0.shape[0]):
+                raise AssertionError(f"{name}: partials {tuple(part.shape)}")
+            f_t, sq_t = twin(ft0, lim, fast)
+            sq_k = torch.sum(part, 0, dtype=torch.float64).to(torch.float32)
+            errs.append(check_pair(f"{name} fast_math={fast}", f_k[run],
+                                   f_t[run], sq_k[run], sq_t[0, run]))
+            if not torch.equal(f_k[~run], ft0[~run]) or part[:, ~run].any():
+                raise AssertionError(f"{name}: a stopped problem changed")
+            del f_k, f_t
+        f_k = ft0.clone()
+        step(f_k, torch.zeros_like(lim), True)
+        if not torch.equal(f_k, ft0):
+            raise AssertionError(f"{name}: a launch with every limit at 0 "
+                                 "wrote ft")
+        return max(errs)
+
+    g0p, g1p = random_gls(n, m, gen, dev)
+    ft = 0.05 + 0.9 * torch.rand((n, m), generator=gen, device=dev)
+    lim = torch.ones(n, device=dev)
+    lim[7] = 0.0
+    n_run = float(lim.sum())
+    err = check(
+        "loo_chunk",
+        lambda f, lv, fast: loo_step(g0p, g1p, f, lv, n, fast),
+        lambda f, lv, fast: loo_chunk_twin(g0p, g1p, f, lv, n, 1, fast),
+        ft, lim)
+    scratch = ft.clone()
+    warps, smem = loo_chunk_geometry(n)
+    tail_ms = time_ms(
+        lambda: loo_step(g0p, g1p, scratch, torch.zeros_like(lim), n), 20)
+    results["loo_chunk"].update(
+        **bound(m * (n - 1) * n_run * OPS_PER_WEIGHT,
+                4 * (2 * n * m + n * m + n_run * m + blocks * n + n)),
+        occupancy="{}x{}warps".format(
+            _kernels.occupancy("loo_chunk", dev, warps, smem), warps),
+        max_abs_err=err,
+        ms=time_ms(lambda: loo_step(g0p, g1p, scratch, lim, n), 5),
+        plain_ms=time_ms(lambda: loo_chunk_twin(g0p, g1p, ft, lim, n, 1), 2),
+        shape=f"n_real={n} P={n} M={m} one_iteration one_stopped",
+    )
+    print(f"[phase 3 loo_chunk tail] all_limits_0_ms={tail_ms:.4f}",
+          flush=True)
+    del ft, scratch
+
+    b = STEP_B
+    leave = torch.sort(torch.randperm(n, generator=gen, device=dev)[:b])
+    leave = leave.values.to(torch.int32)
+    leave_rand = leave[torch.randperm(b, generator=gen, device=dev)]
+    ftz = 0.05 + 0.9 * torch.rand((b, m), generator=gen, device=dev)
+    sw = (torch.rand((b, m), generator=gen, device=dev) < STEP_FILL).float()
+    sw_low = (torch.rand((b, m), generator=gen, device=dev) < 0.27).float()
+    limz = torch.ones(b, device=dev)
+    limz[3] = 0.0
+    b_run = float(limz.sum())
+    err = check(
+        "zloo_chunk",
+        lambda f, lv, fast: zloo_step(g0p, g1p, f, sw, leave, lv, n, fast),
+        lambda f, lv, fast: zloo_chunk_twin(g0p, g1p, f, sw, leave, lv, n, 1,
+                                            fast),
+        ftz, limz)
+    scratch = ftz.clone()
+    warps, smem = zloo_chunk_geometry(n, b)
+    tail_ms = time_ms(lambda: zloo_step(g0p, g1p, scratch, sw, leave,
+                                        torch.zeros_like(limz), n), 20)
+    results["zloo_chunk"].update(
+        **bound(m * (n - 1) * b_run * OPS_PER_WEIGHT,
+                4 * (2 * n * m + 2 * b * m + b_run * m + blocks * b + 3 * b)),
+        occupancy="{}x{}warps".format(
+            _kernels.occupancy("zloo_chunk", dev, warps, smem), warps),
+        max_abs_err=err,
+        ms=time_ms(lambda: zloo_step(g0p, g1p, scratch, sw, leave, limz, n),
+                   5),
+        plain_ms=time_ms(lambda: zloo_chunk_twin(g0p, g1p, ftz, sw, leave,
+                                                 limz, n, 1), 2),
+        other_fill_ms=time_ms(lambda: zloo_step(g0p, g1p, scratch, sw_low,
+                                                leave, limz, n), 5),
+        shape=f"n_real={n} B={b} M={m} one_iteration one_stopped "
+              f"fill={STEP_FILL}",
+        other_shape="fill=0.27",
+        extra_ms=time_ms(lambda: zloo_step(g0p, g1p, scratch, sw, leave_rand,
+                                           limz, n), 5),
+        extra_shape="random_leave",
+    )
+    print(f"[phase 3 zloo_chunk tail] all_limits_0_ms={tail_ms:.4f}",
+          flush=True)
+    del g0p, g1p, ftz, scratch, sw, sw_low
+    torch.cuda.empty_cache()
+
+
+def decide_vs_twin(dev, gen, results):
+    """Phase 3, the convergence test (``em_decide``) against its twin on the
+    card, at the loo cell's partials (156,250 blocks x 49 problems): one
+    :class:`Convergence` updated by the kernel and one by the twin
+    (``_update_twin``) from the same partials for ``DECIDE_ITERS``
+    iterations, without and with a reduce between the summing and the
+    testing launch.  Limits, iterations and counters must be equal after
+    every iteration and the float32 sums that the reduce sees equal bit for
+    bit.  Problem 1 holds a NaN (never converges), problem 2 negative
+    partials (stops at once), problem 3 starts stopped; problem j's RMSE is
+    ~tol * 2 ** (j % 8 - it / 2), so the rest stop at iterations 1 to 16."""
+    import numpy as np
+    import torch
+
+    from wgsassign_tpu_torch.ops.em_decide import Convergence
+
+    rows, p, tol = -(-STEP_M // 32), STEP_N, 1e-4
+    m_real = np.full(p, float(STEP_M))
+    base = 2.0 * torch.rand((rows, p), generator=gen, device=dev)
+    base *= (tol * tol * STEP_M / rows) * 4.0 ** (
+        torch.arange(p, device=dev) % 8)
+    base[0, 1] = float("nan")
+    base[:, 2] = -base[:, 2]
+    iters0 = np.full(p, 200, np.int32)
+    active = np.ones(p, bool)
+    active[3], iters0[3] = False, 5
+    for with_reduce in (False, True):
+        sides = {"kernel": Convergence(iters0, active, m_real, tol, dev),
+                 "twin": Convergence(iters0, active, m_real, tol, dev)}
+        seen = {side: [] for side in sides}
+
+        def reduce_of(side):
+            def reduce(sq):
+                seen[side].append(sq.clone())
+                return sq
+            return reduce if with_reduce else None
+
+        for it in range(DECIDE_ITERS):
+            part = base * 0.5 ** it
+            sides["kernel"].update(part, it, reduce_of("kernel"))
+            sides["twin"]._update_twin(part, it, reduce_of("twin"))
+            k, t = sides["kernel"], sides["twin"]
+            for field in ("limits", "iters", "stats"):
+                if not torch.equal(getattr(k, field), getattr(t, field)):
+                    raise AssertionError(
+                        f"em_decide: {field} differ from the twin's after "
+                        f"iteration {it} (reduce={with_reduce})")
+        for got, want in zip(seen["kernel"], seen["twin"]):
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+        iters, act, ran, tails = sides["kernel"].fetch()
+        if (not act[1] or act[2] or iters[2] != 1 or iters[3] != 5
+                or len(set(iters[act == 0].tolist())) < 8):
+            raise AssertionError(f"em_decide: iterations {iters.tolist()}")
+    timed = Convergence(np.full(p, 200, np.int32), np.ones(p, bool), m_real,
+                        0.0, dev)
+    twin = Convergence(np.full(p, 200, np.int32), np.ones(p, bool), m_real,
+                       0.0, dev)
+    results["em_decide"].update(
+        **bound(p * 8, 4 * rows * p + 4 * 4 * p),
+        max_abs_err=0.0,
+        ms=time_ms(lambda: timed.update(base, 0), 20),
+        plain_ms=time_ms(lambda: twin._update_twin(base, 0, None), 20),
+        library_ms=time_ms(lambda: torch.sum(base, 0, dtype=torch.float64),
+                           20),
+        shape=f"rows={rows} P={p} iters={DECIDE_ITERS} reduce=none,capture",
+    )
 
 
 def ztables_vs_twins(dev, gen, results):
@@ -565,14 +776,11 @@ def loglik_vs_twin(dev, gen, results):
 
 
 def zscore_kernels_vs_twins(dev, gen, results):
-    """Phase 3, the z-score EM kernels: zLOO at one population's share of
-    a 64-individual AF group over 1M sites (kept fraction ~0.86, the
-    loo-structured path's), sites at phase 6b's gathered block (64
-    problems, 35 members, 524,288 kept-site slots).  Each is also timed at
-    the other structure's typical kept fraction; zLOO with the ascending
-    left-out rows of the z-score path (phase 3's are a random permutation),
-    sites with every second problem finished (limit 0), as in the later
-    chunks of a run."""
+    """Phase 3, the gathered z-score EM kernel (``sites_chunk``) at phase
+    6b's gathered block (64 problems, 35 members, 524,288 kept-site slots),
+    also timed at the loo-structured path's kept fraction and with every
+    second problem finished (limit 0), as in the later chunks of a run.
+    (``zloo_chunk`` is held to its twin in :func:`loo_steps_vs_twins`.)"""
     import torch
 
     from wgsassign_tpu_torch import _kernels
@@ -581,50 +789,8 @@ def zscore_kernels_vs_twins(dev, gen, results):
         sites_chunk_geometry,
         sites_chunk_twin,
     )
-    from wgsassign_tpu_torch.ops.zloo_chunk import (
-        zloo_chunk,
-        zloo_chunk_geometry,
-        zloo_chunk_twin,
-    )
 
-    m, n_real, b, T = M_MAIN, 36, 13, 8
-    g0p, g1p = random_gls(n_real, m, gen, dev)
-    ft = 0.05 + 0.9 * torch.rand((b, m), generator=gen, device=dev)
-    sw = (torch.rand((b, m), generator=gen, device=dev) < 0.86).float()
-    leave = torch.randperm(n_real, generator=gen, device=dev)[:b].to(
-        torch.int32)
-    lim = torch.full((b,), float(T), device=dev)
-    lim[2], lim[5] = 3.0, 0.0
-    args = (g0p, g1p, ft, sw, leave, lim, n_real, T)
-    errs = []
-    for fast in (True, False):
-        f_k, sq_k = zloo_chunk(*args, fast)
-        f_t, sq_t = zloo_chunk_twin(*args, fast)
-        errs.append(check_pair(f"zloo_chunk fast_math={fast}", f_k, f_t,
-                               sq_k, sq_t))
-    sw_low = (torch.rand((b, m), generator=gen, device=dev) < 0.27).float()
-    leave_up = torch.sort(leave).values
-    warps, smem = zloo_chunk_geometry(n_real, b)
-    results["zloo_chunk"].update(
-        **bound(m * (n_real - 1) * updates(lim, T) * OPS_PER_WEIGHT,
-                4 * (2 * n_real * m + 3 * b * m + T * b + 2 * b)),
-        occupancy="{}x{}warps".format(
-            _kernels.occupancy("zloo_chunk", dev, warps, smem), warps),
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: zloo_chunk(*args), 5),
-        plain_ms=time_ms(lambda: zloo_chunk_twin(*args), 2),
-        other_fill_ms=time_ms(
-            lambda: zloo_chunk(g0p, g1p, ft, sw_low, leave, lim, n_real, T),
-            5),
-        shape=f"n_real={n_real} B={b} M={m} T={T} fill=0.86",
-        other_shape="fill=0.27",
-        extra_ms=time_ms(
-            lambda: zloo_chunk(g0p, g1p, ft, sw, leave_up, lim, n_real, T),
-            5),
-        extra_shape="ascending_leave",
-    )
-    del g0p, g1p, ft, sw, sw_low, f_k, f_t
-
+    T = 8
     for b, p, s, timed in ((64, 35, 524_288, "main"),
                            (16, 35, 1_048_576, "other")):
         g0s, g1s = random_panels(b, p, s, gen, dev)
@@ -735,6 +901,9 @@ def main_path(results):
         results[name]["launches"] = counts.get(name, 0)
         if not counts.get(name):
             raise AssertionError(f"the main path never launched {name}")
+    # the convergence test: a summing and a testing launch an iteration
+    if counts["em_decide"] != 2 * counts["loo_chunk"]:
+        raise AssertionError(f"em_decide launches {counts}")
     af = np.load(out + ".pop_af.npy")
     if af.shape != (M_MAIN, K_MAIN) or af.dtype != np.float32:
         raise AssertionError(f"pop_af has shape {af.shape} {af.dtype}")
@@ -850,6 +1019,9 @@ def zscore_path(results):
         other = "sites_chunk" if path == "6a" else "zloo_chunk"
         if counts.get(other):
             raise AssertionError(f"z-score run {path} launched {other}")
+        if counts.get("em_decide", 0) != 2 * counts.get("zloo_chunk", 0):
+            raise AssertionError(f"z-score run {path}: em_decide launches "
+                                 f"{counts}")
         for suffix in outputs:
             read_z_file(out + suffix, N_MAIN)
         with open(out + ".log") as log:
@@ -1246,11 +1418,12 @@ def ranks_main_path(main_counts, main_totals, main_iters):
     if exact and not same_bytes(out + ".pop_af.npy", main + ".pop_af.npy"):
         raise AssertionError("10a: .pop_af.npy differs from phase 4's")
     # launches per rank: phase 4's, give or take one chunk and its replay
-    # for each EM that crossed the tolerance an iteration apart (individual
-    # i belongs to population i % K)
+    # for the reference AF's EM, and one launch (an iteration) for each LOO
+    # EM, if it crossed the tolerance an iteration apart (individual i
+    # belongs to population i % K)
     slack = {"em_chunk": 2 * any(af_off),
-             "loo_chunk": 2 * len({int(i) % K_MAIN
-                                   for i in np.flatnonzero(loo_off)})}
+             "loo_chunk": len({int(i) % K_MAIN
+                               for i in np.flatnonzero(loo_off)})}
     for rank, r in enumerate(ranks):
         for name, allowed in slack.items():
             got_n = r["launches"].get(name, 0)
@@ -1392,11 +1565,12 @@ def unstaged_kernels_vs_twins(dev):
     """The three EM kernels one member above what they stage in shared
     memory (the unstaged form, which reads the members from the global
     panels) against their twins, bit for bit in ``ft``, with the time of the
-    staged form one member below beside it.  Returns the fields to print."""
+    staged form one member below beside it (the two LOO kernels over T
+    one-iteration launches, :func:`stepped_chunk`).  Returns the fields to
+    print."""
     import torch
 
     from wgsassign_tpu_torch.ops.loo_chunk import (
-        loo_chunk,
         loo_chunk_geometry,
         loo_chunk_twin,
         max_loo_members,
@@ -1409,7 +1583,6 @@ def unstaged_kernels_vs_twins(dev):
     )
     from wgsassign_tpu_torch.ops.zloo_chunk import (
         max_zloo_members,
-        zloo_chunk,
         zloo_chunk_geometry,
         zloo_chunk_twin,
     )
@@ -1449,7 +1622,7 @@ def unstaged_kernels_vs_twins(dev):
         return (g0p[:n].contiguous(), g1p[:n].contiguous(),
                 ft[:n].contiguous(), lim, n, T)
 
-    check("loo_chunk", loo_chunk, loo_chunk_twin, loo_chunk_geometry,
+    check("loo_chunk", loo_by_steps, loo_chunk_twin, loo_chunk_geometry,
           loo_args, max_loo_members())
 
     b, T = 13, 8
@@ -1464,7 +1637,7 @@ def unstaged_kernels_vs_twins(dev):
         return (g0p[:n].contiguous(), g1p[:n].contiguous(), ftz, sw, leave,
                 lim, n, T)
 
-    check("zloo_chunk", zloo_chunk, zloo_chunk_twin,
+    check("zloo_chunk", zloo_by_steps, zloo_chunk_twin,
           lambda n: zloo_chunk_geometry(n, b), zloo_args, max_zloo_members())
     del g0p, g1p, ft, ftz, sw
 
@@ -1544,8 +1717,8 @@ def big_population(dev):
         raise AssertionError(f"10c: warnings {warned}")
     if got.engines != ("loo_chunk", "loo_chunk"):
         raise AssertionError(f"10c: engines {got.engines}")
-    # a chunk, and at most its replay, for each of the two populations
-    if not 2 <= counts.get("loo_chunk", 0) <= 4:
+    # one launch an iteration, BIG_ITERS for each of the two populations
+    if counts.get("loo_chunk", 0) != 2 * BIG_ITERS:
         raise AssertionError(f"10c: launches {counts}")
     t_cpu = time.perf_counter()
     want = leave_one_out(beagle, ref.af, popmap, max_iter=BIG_ITERS,

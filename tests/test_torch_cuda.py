@@ -30,16 +30,20 @@ from wgsassign_tpu_torch.ops.em_chunk import (
     em_chunk_geometry,
     em_chunk_twin,
 )
+from wgsassign_tpu_torch.ops.em_decide import Convergence
 from wgsassign_tpu_torch.ops.fused_em import (
+    FLAG_LAG,
+    _device_init_ft,
+    _drive_chunks,
     em_maf_loo_group_fused,
     em_maf_loo_subset_fused,
     em_maf_pops_fused,
     em_maf_sites_batch_fused,
 )
 from wgsassign_tpu_torch.ops.loo_chunk import (
-    loo_chunk,
     loo_chunk_geometry,
     loo_chunk_twin,
+    loo_step,
     max_loo_members,
 )
 from wgsassign_tpu_torch.ops.sites_chunk import (
@@ -50,9 +54,9 @@ from wgsassign_tpu_torch.ops.sites_chunk import (
 )
 from wgsassign_tpu_torch.ops.zloo_chunk import (
     max_zloo_members,
-    zloo_chunk,
     zloo_chunk_geometry,
     zloo_chunk_twin,
+    zloo_step,
 )
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +67,22 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda:0")
+
+
+def _steps_as_chunk(step, ft, lim, T):
+    """The twins' chunk contract from the one-iteration kernels: T launches
+    of ``step(f, limits)`` on a copy of ``ft``, problem j running while
+    ``lim[j] > t``.  Returns ``(f, sq [T, P])``, each launch's per-block
+    partials summed as the EM driver sums them (float64, then float32), a
+    stopped problem's sum 0."""
+    f = ft.clone()
+    sq = []
+    for t in range(T):
+        run = lim > t
+        part = step(f, run.to(torch.float32))
+        s = torch.sum(part, 0, dtype=torch.float64).to(torch.float32)
+        sq.append(torch.where(run, s, 0.0))
+    return f, torch.stack(sq)
 
 
 def _gls(rows, cols, seed):
@@ -145,8 +165,10 @@ def test_loo_chunk_kernel_matches_twin(cuda, fast_math, n_real, p, m, limits):
         lim[:n_real] = (np.arange(n_real) * 5) % (T + 1)
     args = [torch.from_numpy(a).to(cuda) for a in (g0p, g1p, ft, lim)]
     before = _kernels.launches["loo_chunk"]
-    f_k, sq_k = loo_chunk(*args, n_real, T, fast_math=fast_math)
-    assert _kernels.launches["loo_chunk"] == before + 1
+    f_k, sq_k = _steps_as_chunk(
+        lambda f, run: loo_step(args[0], args[1], f, run, n_real, fast_math),
+        args[2], args[3], T)
+    assert _kernels.launches["loo_chunk"] == before + T
     f_t, sq_t = loo_chunk_twin(*args, n_real, T, fast_math=fast_math)
     torch.cuda.synchronize()
     torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-6)
@@ -171,8 +193,10 @@ def test_loo_chunk_member_bound(cuda, fast_math):
                 ftd[:n_p].contiguous(), lim)
         assert (loo_chunk_geometry(n_p)[1] == 0) == (n_p > bound)
         before = _kernels.launches["loo_chunk"]
-        f_k, sq_k = loo_chunk(*args, n_p, T, fast_math=fast_math)
-        assert _kernels.launches["loo_chunk"] == before + 1
+        f_k, sq_k = _steps_as_chunk(
+            lambda f, run: loo_step(args[0], args[1], f, run, n_p, fast_math),
+            args[2], lim, T)
+        assert _kernels.launches["loo_chunk"] == before + T
         f_t, sq_t = loo_chunk_twin(*args, n_p, T, fast_math=fast_math)
         torch.cuda.synchronize()
         assert float((f_k - f_t).abs().max()) == 0.0
@@ -251,14 +275,17 @@ def test_zloo_chunk_kernel_matches_twin(cuda, fast_math, n_real, np_pad, m,
             for a in (g0p, g1p, ft, sw, np.asarray(leave, np.int32),
                       np.asarray(limits, np.float32))]
     before = _kernels.launches["zloo_chunk"]
-    f_k, sq_k = zloo_chunk(*args, n_real, T, fast_math=fast_math)
-    assert _kernels.launches["zloo_chunk"] == before + 1
+    f_k, sq_k = _steps_as_chunk(
+        lambda f, run: zloo_step(args[0], args[1], f, args[3], args[4], run,
+                                 n_real, fast_math),
+        args[2], args[5], T)
+    assert _kernels.launches["zloo_chunk"] == before + T
     f_t, sq_t = zloo_chunk_twin(*args, n_real, T, fast_math=fast_math)
     torch.cuda.synchronize()
     assert float((f_k - f_t).abs().max()) == 0.0
     torch.testing.assert_close(sq_k, sq_t, rtol=1e-5, atol=0)
-    torch.testing.assert_close(args[2], torch.from_numpy(ft).to(cuda),
-                               rtol=0, atol=0)
+    stopped = args[5] == 0
+    assert torch.equal(f_k[stopped], args[2][stopped])
 
 
 def test_zloo_chunk_panel_views(cuda):
@@ -277,7 +304,9 @@ def test_zloo_chunk_panel_views(cuda):
             torch.ones((3, m), device=cuda),
             torch.tensor([0, 5, 10], dtype=torch.int32, device=cuda),
             torch.full((3,), float(T), device=cuda))
-    f_k, sq_k = zloo_chunk(*args, n_real, T)
+    f_k, sq_k = _steps_as_chunk(
+        lambda f, run: zloo_step(v0, v1, f, args[3], args[4], run, n_real),
+        args[2], args[5], T)
     f_t, sq_t = zloo_chunk_twin(*args, n_real, T)
     torch.cuda.synchronize()
     assert float((f_k - f_t).abs().max()) == 0.0
@@ -375,8 +404,11 @@ def test_zloo_above_the_staging_bound(cuda):
         args = (g0d[:n_p].contiguous(), g1d[:n_p].contiguous(), *rest)
         assert (zloo_chunk_geometry(n_p, 5)[1] == 0) == (n_p > bound)
         before = _kernels.launches["zloo_chunk"]
-        f_k, sq_k = zloo_chunk(*args, n_p, T)
-        assert _kernels.launches["zloo_chunk"] == before + 1
+        f_k, sq_k = _steps_as_chunk(
+            lambda f, run: zloo_step(args[0], args[1], f, args[3], args[4],
+                                     run, n_p),
+            args[2], args[5], T)
+        assert _kernels.launches["zloo_chunk"] == before + T
         f_t, sq_t = zloo_chunk_twin(*args, n_p, T)
         torch.cuda.synchronize()
         assert float((f_k - f_t).abs().max()) == 0.0
@@ -439,6 +471,162 @@ def test_zscore_fused_ems_kernel_vs_twin(cuda):
                                             chunk_op=sites_chunk_twin)
     np.testing.assert_array_equal(it_k, it_t)
     torch.testing.assert_close(f_k, f_t, rtol=0, atol=1e-5)
+
+
+def _loo_panels(cuda, n_p, m, seed):
+    g0, g1 = _gls(m, n_p, seed)
+    return (torch.from_numpy(np.ascontiguousarray(g0.T)).to(cuda),
+            torch.from_numpy(np.ascontiguousarray(g1.T)).to(cuda))
+
+
+def _chunks_with_replays(step, ft, p, m_real):
+    """The driver with T = 8 chunks, the host's test and replays that ran
+    the LOO kernels before they took one iteration a launch, each chunk
+    made of ``step``'s launches (:func:`_steps_as_chunk`, which equals the
+    T-iteration kernel's chunk to the bit)."""
+    def run_chunk(ft_in, lv, T):
+        lim = torch.from_numpy(lv).to(ft_in.device)
+        return _steps_as_chunk(step, ft_in, lim, T)
+
+    f, it, active = _drive_chunks(run_chunk, None, ft, p, 200, 1e-4, m_real,
+                                  8, None, name="test_chunks")
+    return f, it, ~active
+
+
+def test_loo_ems_stop_on_the_card_as_chunks_and_replays(cuda):
+    """``em_maf_loo_group_fused`` and ``em_maf_loo_subset_fused``: one
+    iteration a launch with the test on the card against the kernels' T = 8
+    chunks with the host's test and replays: equal iterations and
+    convergence, ``f`` bit for bit; every launched problem-iteration
+    useful, and at most ``FLAG_LAG`` launches after the last stop."""
+    import wgsassign_tpu_torch.obs.profiling as prof
+    from torch.profiler import profile
+
+    n_p, m = 24, 3000
+    g0p, g1p = _loo_panels(cuda, n_p, m, 31)
+    before = prof.counters()
+    with profile():
+        got = em_maf_loo_group_fused(g0p, g1p, m, 200, 1e-4)
+    counts = {k: v - before.get(k, 0) for k, v in prof.counters().items()}
+
+    def loo_run(f, run):
+        return loo_step(g0p, g1p, f, run, n_p)
+
+    want = _chunks_with_replays(loo_run, _device_init_ft((n_p, m), m, cuda),
+                                n_p, m)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert torch.equal(got[0], want[0])
+    tails = counts["loo_chunk.tail_launches"]
+    assert 0 <= tails <= FLAG_LAG
+    assert counts["loo_chunk.launches"] == int(got[1].max()) + tails
+    assert counts["loo_chunk.launched_iters"] == counts[
+        "loo_chunk.useful_iters"] == int(got[1].sum())
+    assert counts.get("loo_chunk.replays", 0) == 0
+
+    leave = np.asarray([0, 3, 5, 8, 11, 23, 30], np.int32)
+    rng = np.random.default_rng(32)
+    sw = torch.from_numpy((rng.random((leave.size, m)) < 0.85).astype(
+        np.float32)).to(cuda)
+    m_real = sw.sum(dim=1).cpu().numpy()
+    got = em_maf_loo_subset_fused(g0p, g1p, leave, sw, m_real, 200, 1e-4)
+    leave_d = torch.from_numpy(leave).to(cuda)
+
+    def zloo_run(f, run):
+        return zloo_step(g0p, g1p, f, sw, leave_d, run, n_p)
+
+    want = _chunks_with_replays(
+        zloo_run, torch.full((leave.size, m), 0.25, device=cuda), leave.size,
+        m_real)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("rows,p", [(1, 5), (157, 13), (5000, 49),
+                                    (2000, 300)])
+def test_decide_kernel_sums_and_tests_as_the_host(cuda, rows, p):
+    """``Convergence.update`` on the card: the float32 sums equal
+    ``torch.sum(sq_part, 0, dtype=float64).to(float32)`` (0 for a stopped
+    problem), and the stops, iterations and counts are the host's numpy
+    test's, with and without a reduce between the summing and the testing
+    launch; a NaN sum never converges, a negative one does."""
+    rng = np.random.default_rng(rows + p)
+    part = rng.exponential(1e-6, (rows, p)).astype(np.float32)
+    part[0, 1] = np.nan
+    part[:, 2] = -part[:, 2]
+    part_d = torch.from_numpy(part).to(cuda)
+    want_sq = torch.sum(part_d, 0, dtype=torch.float64).to(torch.float32)
+    m_real = rng.uniform(0.5, 2.0, p) * rows
+    rmse = np.sqrt(np.maximum(want_sq.cpu().numpy(), 0.0) / m_real)
+    tol = float(np.nanmedian(rmse))
+    active = np.ones(p, bool)
+    active[3] = False
+    iters0 = np.full(p, 60, np.int32)
+    iters0[3] = 4
+    stop = active & (rmse < tol)
+    sums = []
+
+    def reduce(sq):
+        sums.append(sq.clone())
+        return sq
+
+    for red in (None, reduce):
+        conv = Convergence(iters0, active, m_real, tol, cuda)
+        conv.update(part_d, 6, red)
+        iters, act, ran, tails = conv.fetch()
+        np.testing.assert_array_equal(iters, np.where(stop, 7, iters0))
+        np.testing.assert_array_equal(act, active & ~stop)
+        assert (ran, tails) == (int(active.sum()), 0)
+        assert int(conv.stats[2]) == int((active & ~stop).sum())
+    torch.testing.assert_close(sums[0][active], want_sq[active], rtol=0,
+                               atol=0, equal_nan=True)
+    assert not sums[0][~active].any()
+    assert 1 not in np.flatnonzero(stop) and 2 in np.flatnonzero(stop)
+    # with every problem stopped the launch is a tail launch
+    conv.update(part_d, 7)
+    conv.limits.zero_()
+    conv.update(part_d, 8)
+    assert conv.fetch()[3] == 1
+
+
+def test_steps_update_in_place(cuda):
+    """``loo_step`` and ``zloo_step`` equal one iteration of the twins, in
+    place; a stopped problem's row is left as it was, and with every limit
+    at 0 nothing changes."""
+    n_p, m = 11, 1001
+    g0p, g1p = _loo_panels(cuda, n_p, m, 33)
+    ft = torch.from_numpy(np.random.default_rng(34).uniform(
+        0.05, 0.95, (n_p, m)).astype(np.float32)).to(cuda)
+    lim = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0,
+                        1.0], device=cuda)
+    f_t, sq_t = loo_chunk_twin(g0p, g1p, ft, lim, n_p, 1)
+    f_k = ft.clone()
+    part = loo_step(g0p, g1p, f_k, lim, n_p)
+    assert part.shape == (-(-m // 32), n_p)
+    assert torch.equal(f_k, f_t)
+    run = lim > 0
+    torch.testing.assert_close(part.sum(0)[run], sq_t[0, run], rtol=1e-5,
+                               atol=0)
+    assert not part[:, ~run].any()
+    loo_step(g0p, g1p, f_k, torch.zeros_like(lim), n_p)
+    assert torch.equal(f_k, f_t)
+
+    leave = torch.tensor([4, 0, 9, 2, 7], dtype=torch.int32, device=cuda)
+    sw = torch.from_numpy((np.random.default_rng(35).random((5, m)) < 0.8)
+                          .astype(np.float32)).to(cuda)
+    ftz = ft[:5].clone()
+    limz = torch.tensor([1.0, 0.0, 1.0, 0.0, 1.0], device=cuda)
+    f_t, sq_t = zloo_chunk_twin(g0p, g1p, ftz, sw, leave, limz, n_p, 1)
+    part = zloo_step(g0p, g1p, ftz, sw, leave, limz, n_p)
+    assert part.shape == (-(-m // 32), 5)
+    assert torch.equal(ftz, f_t)
+    run = limz > 0
+    torch.testing.assert_close(part.sum(0)[run], sq_t[0, run], rtol=1e-5,
+                               atol=0)
+    assert not part[:, ~run].any()
+    zloo_step(g0p, g1p, ftz, sw, leave, torch.zeros_like(limz), n_p)
+    assert torch.equal(ftz, f_t)
 
 
 def _beagle(m, n, seed):

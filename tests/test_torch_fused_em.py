@@ -19,6 +19,8 @@ from wgsassign_tpu.ops import pallas_emmaf as jax_fused
 from wgsassign_tpu_torch.models.common import from_jax_arrays
 from wgsassign_tpu_torch.obs.checkpoint import EMCheckpoint
 from wgsassign_tpu_torch.ops import emmaf, fused_em
+from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk_twin
+from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk_twin
 
 CASES = [
     (1e-4, 200, 16),   # normal convergence, mid-chunk crossings + replay
@@ -227,3 +229,132 @@ def test_checkpoint_interchange(tmp_path, kind, writer, reader):
     np.testing.assert_array_equal(it_res, it_full)
     np.testing.assert_allclose(resumed, full, rtol=0, atol=1e-5)
     assert ck_r.load() is None  # cleared on completion
+
+
+def _schedule_op(schedule):
+    """A chunk function over problems whose k-th update has the squared
+    update ``schedule[p, k]``; the state's column 0 counts a problem's
+    updates, column 1 moves by a float32 map, so a stop one iteration early
+    or late changes both."""
+    sched = torch.from_numpy(np.asarray(schedule, np.float32))
+    rows = torch.arange(sched.shape[0])
+
+    def chunk(ft, limits, T):
+        f = ft.clone()
+        sq = torch.zeros((T, f.shape[0]), dtype=torch.float32)
+        for t in range(T):
+            run = torch.as_tensor(limits) > t
+            k = f[:, 0].long().clamp(max=sched.shape[1] - 1)
+            sq[t] = torch.where(run, sched[rows, k], 0.0)
+            moved = torch.stack([f[:, 0] + 1.0, f[:, 1] * 0.75 + 0.125], 1)
+            f = torch.where(run[:, None], moved, f)
+        return f, sq
+
+    return chunk
+
+
+def _geometric(p, n, start, ratio):
+    return start * ratio ** np.arange(n)[None, :] * np.ones((p, 1))
+
+
+def _schedule_case(schedule, max_iter, tol, m_real):
+    """Both drivers on ``_schedule_op(schedule)``."""
+    chunk = _schedule_op(schedule)
+    p = len(schedule)
+    ft0 = torch.zeros((p, 2), dtype=torch.float32)
+    ft0[:, 1] = 0.5
+    old = fused_em._drive_chunks(
+        lambda ft, lv, T: chunk(ft, lv, T), None, ft0, p, max_iter, tol,
+        m_real, 8, None, name="test_old")
+    new = fused_em._drive_steps(
+        lambda ft, limits: chunk(ft, limits, 1), None, ft0, p, max_iter, tol,
+        m_real, None, name="test_new")
+    return old, new
+
+
+def _loo_case():
+    g0p, g1p, _ = _loo_problem(m=80, n_p=6, seed=21)
+    g0t, g1t = from_jax_arrays(g0p, g1p, device="cpu")
+    n_p, m = g0t.shape
+
+    def run_chunk(ft, lv, T):
+        return loo_chunk_twin(g0t, g1t, ft, torch.from_numpy(lv), n_p, T)
+
+    ft0 = fused_em._device_init_ft((n_p, m), m, g0t.device)
+    old = fused_em._drive_chunks(run_chunk, None, ft0, n_p, 200, 1e-4, m, 8,
+                                 None, name="test_old")
+    f, it, conv = fused_em.em_maf_loo_group_fused(g0t, g1t, m, 200, 1e-4)
+    return old, (f, it, ~conv)
+
+
+def _zloo_case():
+    g0p, g1p, _ = _loo_problem(m=90, n_p=7, seed=22)
+    g0t, g1t = from_jax_arrays(g0p, g1p, device="cpu")
+    rng = np.random.default_rng(23)
+    leave = np.asarray([0, 2, 3, 6, 9], np.int32)  # 9: leaves nothing out
+    sw = torch.from_numpy((rng.random((5, 90)) < 0.7).astype(np.float32))
+    m_real = sw.sum(dim=1).numpy()
+    n_p = g0t.shape[0]
+    leave_t = torch.from_numpy(leave)
+
+    def run_chunk(ft, lv, T):
+        return zloo_chunk_twin(g0t, g1t, ft, sw, leave_t,
+                               torch.from_numpy(lv), n_p, T)
+
+    ft0 = torch.full((5, 90), 0.25)
+    old = fused_em._drive_chunks(run_chunk, None, ft0, 5, 200, 1e-4, m_real,
+                                 8, None, name="test_old")
+    f, it, conv = fused_em.em_maf_loo_subset_fused(g0t, g1t, leave, sw,
+                                                   m_real, 200, 1e-4)
+    return old, (f, it, ~conv)
+
+
+def _crossings():
+    # problem p's squared update drops below tol^2 * m_real at update k_p:
+    # inside the first chunk, at a chunk's end, inside the second, later
+    sched = np.ones((4, 40))
+    for p, k in enumerate((3, 7, 11, 17)):
+        sched[p, k:] = 1e-12
+    return _schedule_case(sched, 40, 1e-4, 100)
+
+
+def _first_iteration():
+    sched = _geometric(3, 30, 1.0, 0.5)
+    sched[1, :] = 0.0  # converged after its first update
+    return _schedule_case(sched, 30, 1e-4, 50)
+
+
+def _never():
+    sched = _geometric(3, 30, 1.0, 0.5)
+    sched[0, :] = 1.0  # never below tol: runs max_iter updates
+    sched[2, :12] = np.nan  # a NaN never converges; later ones do
+    return _schedule_case(sched, 30, 1e-4, 50)
+
+
+def _per_problem_m_real():
+    # one squared-update sequence, four site counts: four stops
+    sched = _geometric(4, 60, 1.0, 0.7)
+    return _schedule_case(sched, 60, 1e-3,
+                          np.asarray([1.0, 1e2, 1e4, 1e6], np.float32))
+
+
+def _zero_or_negative_sq():
+    sched = _geometric(4, 30, 1.0, 0.8)
+    sched[0, 5] = 0.0
+    sched[1, 9] = -1.0  # max(sq, 0) = 0: converged
+    sched[2, 0] = -0.0
+    return _schedule_case(sched, 30, 1e-5, 10)
+
+
+@pytest.mark.parametrize("case", [
+    _crossings, _first_iteration, _never, _per_problem_m_real,
+    _zero_or_negative_sq, _loo_case, _zloo_case])
+def test_steps_driver_matches_chunks_and_replays(case):
+    """The one-iteration driver with the test on the device stops every
+    problem where the chunked driver's replays stop it: equal iterations
+    and convergence, the state equal bit for bit."""
+    (f_old, it_old, act_old), (f_new, it_new, act_new) = case()
+    np.testing.assert_array_equal(it_new, it_old)
+    np.testing.assert_array_equal(act_new, act_old)
+    assert it_new.dtype == np.int32 and act_new.dtype == bool
+    assert torch.equal(f_new, f_old)

@@ -18,9 +18,9 @@ from wgsassign_tpu_torch.ops.loo_chunk import (
     LOO_MAX_WARPS,
     LOO_PROBLEM_TILE,
     LOO_SITES,
-    loo_chunk,
     loo_chunk_geometry,
     loo_chunk_twin,
+    loo_step,
     max_loo_members,
 )
 
@@ -48,8 +48,8 @@ def test_twin_matches_pallas_chunk(fast_math, limits):
         jnp.asarray(lim.reshape(1, -1)), n_real, T, interpret=True,
         fast_math=fast_math,
     )
-    f, sq = loo_chunk(*map(torch.from_numpy, (g0p, g1p, ft, lim)), n_real, T,
-                      fast_math=fast_math)
+    f, sq = loo_chunk_twin(*map(torch.from_numpy, (g0p, g1p, ft, lim)),
+                           n_real, T, fast_math=fast_math)
     np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=0,
                                atol=2e-6)
     np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,
@@ -59,16 +59,22 @@ def test_twin_matches_pallas_chunk(fast_math, limits):
 
 
 def test_wrapper_runs_twin_on_cpu_and_keeps_input():
+    """On the CPU ``loo_step`` runs the twin's one iteration (no launch) and
+    writes it in place; the twin leaves its own input as it was, and a
+    stopped problem's row keeps its value."""
     g0p, g1p, ft = _loo_inputs(n_real=6, np_pad=6, m=40)
-    args = [torch.from_numpy(a) for a in
-            (g0p, g1p, ft, np.full(6, 3, np.float32))]
+    lim = np.ones(6, np.float32)
+    lim[4] = 0.0
+    args = [torch.from_numpy(a) for a in (g0p, g1p, ft, lim)]
     ft_before = args[2].clone()
-    before = _kernels.launches["loo_chunk"]
-    f_w, sq_w = loo_chunk(*args, 6, 3)
-    f_t, sq_t = loo_chunk_twin(*args, 6, 3)
-    torch.testing.assert_close(f_w, f_t, rtol=0, atol=0)
-    torch.testing.assert_close(sq_w, sq_t, rtol=0, atol=0)
+    f_t, sq_t = loo_chunk_twin(*args, 6, 1)
     torch.testing.assert_close(args[2], ft_before, rtol=0, atol=0)
+    before = _kernels.launches["loo_chunk"]
+    ft_w = args[2].clone()
+    sq_w = loo_step(args[0], args[1], ft_w, args[3], 6)
+    torch.testing.assert_close(ft_w, f_t, rtol=0, atol=0)
+    torch.testing.assert_close(sq_w, sq_t, rtol=0, atol=0)
+    torch.testing.assert_close(ft_w[4], ft_before[4], rtol=0, atol=0)
     assert _kernels.launches["loo_chunk"] == before
 
 
@@ -93,8 +99,8 @@ def test_twin_matches_pallas_chunk_shapes(n_real, np_pad, m, limits,
         jnp.asarray(lim.reshape(1, -1)), n_real, T, interpret=True,
         fast_math=fast_math,
     )
-    f, sq = loo_chunk(*map(torch.from_numpy, (g0p, g1p, ft, lim)), n_real, T,
-                      fast_math=fast_math)
+    f, sq = loo_chunk_twin(*map(torch.from_numpy, (g0p, g1p, ft, lim)),
+                           n_real, T, fast_math=fast_math)
     np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=0,
                                atol=2e-6)
     np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,

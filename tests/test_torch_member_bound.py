@@ -96,7 +96,8 @@ def test_loo_above_the_bound_stays_in_the_chunked_em(data, jax_plain,
 
     def spy(g0p, g1p, ft, limits, n_real, T, fast_math=True):
         seen.append(n_real)
-        return loo_mod.loo_chunk(g0p, g1p, ft, limits, n_real, T, fast_math)
+        return loo_mod.loo_chunk_twin(g0p, g1p, ft, limits, n_real, T,
+                                      fast_math)
 
     cohort = to_device(beagle, make_runtime("cpu"))
     res = tloo.leave_one_out(beagle, ref.af, popmap, cohort=cohort,
@@ -170,7 +171,7 @@ def test_reference_z_above_the_bound(data, jax_plain, monkeypatch, logged,
 
     def zloo_spy(g0p, *rest):
         rows.append(g0p.shape[0])
-        return zloo_mod.zloo_chunk(g0p, *rest)
+        return zloo_mod.zloo_chunk_twin(g0p, *rest)
 
     def sites_spy(g0p, *rest):
         rows.append(g0p.shape[1])

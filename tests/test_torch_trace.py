@@ -18,7 +18,7 @@ from wgsassign_tpu_torch.models.assign import assignment_loglikelihoods
 from wgsassign_tpu_torch.models.common import to_device
 from wgsassign_tpu_torch.models.loo import leave_one_out
 from wgsassign_tpu_torch.models.reference_af import estimate_reference_af
-from wgsassign_tpu_torch.ops.fused_em import _drive_chunks
+from wgsassign_tpu_torch.ops.fused_em import FLAG_LAG, _drive_chunks
 from wgsassign_tpu_torch.parallel.runtime import make_runtime
 
 torch.set_num_threads(1)
@@ -94,7 +94,7 @@ def test_trace_holds_the_spans_nested(cohort, tmp_path):
     for name in ("wgsa.refaf.em", "wgsa.refaf.clamp", "wgsa.refaf.fetch",
                  "wgsa.loo.population", "wgsa.loo.gather", "wgsa.loo.em",
                  "wgsa.loo.bank", "wgsa.loglik.selected", "wgsa.em.chunk",
-                 "wgsa.em.sync", "wgsa.assign.af_upload",
+                 "wgsa.em.steps", "wgsa.em.sync", "wgsa.assign.af_upload",
                  "wgsa.loglik.pass"):
         assert name in by, name
     assert len(by["wgsa.loo.population"]) == K
@@ -102,13 +102,18 @@ def test_trace_holds_the_spans_nested(cohort, tmp_path):
                           ("wgsa.loo.em", "wgsa.loo.population"),
                           ("wgsa.loo.bank", "wgsa.loo.population"),
                           ("wgsa.loglik.selected", "wgsa.loo.population"),
-                          ("wgsa.em.sync", "wgsa.em.chunk"),
+                          ("wgsa.em.sync", ("wgsa.em.chunk",
+                                            "wgsa.em.steps")),
                           ("wgsa.em.replay", "wgsa.em.chunk")):
+        parents = sum((by.get(p, []) for p in (
+            (parent,) if isinstance(parent, str) else parent)), [])
         for e in by.get(child, []):
-            assert _inside(e, by[parent]), (child, parent)
-    em_parents = by["wgsa.refaf.em"] + by["wgsa.loo.em"]
+            assert _inside(e, parents), (child, parent)
+    # the reference AF's EM runs chunks, the LOO EMs one iteration a launch
     for e in by["wgsa.em.chunk"]:
-        assert _inside(e, em_parents)
+        assert _inside(e, by["wgsa.refaf.em"])
+    for e in by["wgsa.em.steps"]:
+        assert _inside(e, by["wgsa.loo.em"])
     # siblings: the gathers are not inside the LOO EM
     for e in by["wgsa.loo.gather"]:
         assert not _inside(e, by["wgsa.loo.em"])
@@ -139,8 +144,9 @@ def test_span_totals_time_each_recorded_span(cohort):
 
 def test_useful_iterations_are_the_results(cohort):
     """(c) ``loo_chunk.useful_iters`` is the sum of the LOO convergence
-    iterations, ``em_chunk``'s the reference AF's; one host sync a chunk,
-    one for the AF fetch, one a likelihood call."""
+    iterations, ``em_chunk``'s the reference AF's; one host sync an
+    ``em_chunk`` chunk, one a LOO EM (its iterations, fetched once), one
+    for the AF fetch, one a likelihood call."""
     before = prof.counters()
     with profile():
         out = _analysis(cohort)
@@ -149,8 +155,7 @@ def test_useful_iterations_are_the_results(cohort):
     assert got["em_chunk.useful_iters"] == int(out["ref_iters"].sum())
     for name in ("em_chunk", "loo_chunk"):
         assert got[f"{name}.launched_iters"] >= got[f"{name}.useful_iters"]
-    chunks = got["em_chunk.launches"] + got["loo_chunk.launches"]
-    assert got["host_syncs"] == chunks + 1 + K + 1
+    assert got["host_syncs"] == got["em_chunk.launches"] + K + 1 + K + 1
 
 
 def test_a_problem_converging_mid_chunk_is_replayed():
@@ -178,13 +183,26 @@ def test_a_problem_converging_mid_chunk_is_replayed():
 
 
 def test_a_real_cohort_replays(cohort):
-    """(d) On the cohort some LOO problem converges inside a chunk."""
+    """(d) On the cohort the reference AF's ``em_chunk`` replays a chunk, as
+    it always did, and the LOO EMs replay nothing: each problem's launched
+    iterations are its useful ones, and each population's EM launches its
+    longest problem's iterations and at most ``FLAG_LAG`` more, in which no
+    problem runs."""
     before = prof.counters()
     with profile():
-        _analysis(cohort)
+        out = _analysis(cohort)
     got = _delta(before)
-    assert got["loo_chunk.replays"] >= 1
-    assert got["loo_chunk.launched_iters"] > got["loo_chunk.useful_iters"]
+    assert {k: v for k, v in got.items() if k.startswith("em_chunk.")} == {
+        "em_chunk.launches": 2, "em_chunk.replays": 1,
+        "em_chunk.launched_iters": 100, "em_chunk.useful_iters": 52}
+    assert got.get("loo_chunk.replays", 0) == 0
+    assert got["loo_chunk.launched_iters"] == got["loo_chunk.useful_iters"]
+    _, popmap, _ = cohort
+    longest = sum(int(out["loo_iters"][popmap.members_of(pop)].max())
+                  for pop in popmap.pops)
+    tails = got["loo_chunk.tail_launches"]
+    assert 0 < tails <= K * FLAG_LAG
+    assert got["loo_chunk.launches"] == longest + tails
 
 
 def test_outputs_are_bit_identical_with_the_profiler(cohort):

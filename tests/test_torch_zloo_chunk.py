@@ -18,9 +18,9 @@ from wgsassign_tpu_torch import _kernels
 from wgsassign_tpu_torch.ops.zloo_chunk import (
     ZLOO_MAX_WARPS,
     max_zloo_members,
-    zloo_chunk,
     zloo_chunk_geometry,
     zloo_chunk_twin,
+    zloo_step,
 )
 
 N_REAL, NP_PAD, B, M, T = 5, 8, 3, 256, 4
@@ -51,8 +51,9 @@ def test_twin_matches_pallas_chunk(fast_math, limits):
         jnp.asarray(lim.reshape(B, 1, 1)), N_REAL, T, interpret=True,
         fast_math=fast_math,
     )
-    f, sq = zloo_chunk(*map(torch.from_numpy, (g0p, g1p, ft, sw, leave, lim)),
-                       N_REAL, T, fast_math=fast_math)
+    f, sq = zloo_chunk_twin(
+        *map(torch.from_numpy, (g0p, g1p, ft, sw, leave, lim)), N_REAL, T,
+        fast_math=fast_math)
     np.testing.assert_allclose(f.numpy(), np.asarray(f_ref)[:, 0, :], rtol=0,
                                atol=2e-6)
     np.testing.assert_allclose(sq.numpy(), np.asarray(sq_ref), rtol=1e-5,
@@ -62,16 +63,22 @@ def test_twin_matches_pallas_chunk(fast_math, limits):
 
 
 def test_wrapper_runs_twin_on_cpu_and_keeps_input():
+    """On the CPU ``zloo_step`` runs the twin's one iteration (no launch)
+    and writes it in place; the twin leaves its own input as it was, and a
+    stopped problem's row keeps its value."""
     g0p, g1p, ft, sw, leave = _zloo_inputs(m=40)
-    args = [torch.from_numpy(a) for a in
-            (g0p, g1p, ft, sw, leave, np.full(B, 3, np.float32))]
+    lim = np.ones(B, np.float32)
+    lim[1] = 0.0
+    args = [torch.from_numpy(a) for a in (g0p, g1p, ft, sw, leave, lim)]
     ft_before = args[2].clone()
-    before = _kernels.launches["zloo_chunk"]
-    f_w, sq_w = zloo_chunk(*args, N_REAL, 3)
-    f_t, sq_t = zloo_chunk_twin(*args, N_REAL, 3)
-    torch.testing.assert_close(f_w, f_t, rtol=0, atol=0)
-    torch.testing.assert_close(sq_w, sq_t, rtol=0, atol=0)
+    f_t, sq_t = zloo_chunk_twin(*args, N_REAL, 1)
     torch.testing.assert_close(args[2], ft_before, rtol=0, atol=0)
+    before = _kernels.launches["zloo_chunk"]
+    ft_w = args[2].clone()
+    sq_w = zloo_step(args[0], args[1], ft_w, *args[3:], N_REAL)
+    torch.testing.assert_close(ft_w, f_t, rtol=0, atol=0)
+    torch.testing.assert_close(sq_w, sq_t, rtol=0, atol=0)
+    torch.testing.assert_close(ft_w[1], ft_before[1], rtol=0, atol=0)
     assert _kernels.launches["zloo_chunk"] == before
 
 

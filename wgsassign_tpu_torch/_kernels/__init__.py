@@ -35,7 +35,8 @@ from wgsassign_tpu_torch.compile_cache import build_root
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_NAME = "wgsassign_tpu_torch_kernels"
 SOURCES = ("probe.cu", "em_chunk.cu", "loo_chunk.cu", "zloo_chunk.cu",
-           "sites_chunk.cu", "loglik.cu", "ztables.cu", "zsums.cu")
+           "sites_chunk.cu", "em_decide.cu", "loglik.cu", "ztables.cu",
+           "zsums.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: every multiply and add rounds on its own, as in the plain
 # twins (see csrc/common.cuh); no --use_fast_math, so '/' is IEEE-rounded
@@ -60,12 +61,14 @@ _SIGNATURES = {
     "wg_probe": (_I, _P, _P, _I, _P),
     "wg_em_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "wg_loo_chunk": (_I, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "wg_zloo_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_loo_chunk": (_I, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_zloo_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_sites_chunk": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "wg_em_decide": (_I, _P, _L, _I, _P, _P, _P, _P, _D, _I, _P, _P, _P, _I,
+                     _I, _P),
     "wg_loglik": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "wg_ztables_bin": (_I, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _L, _I,

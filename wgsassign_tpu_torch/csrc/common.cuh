@@ -125,7 +125,7 @@ __device__ __forceinline__ void stage_member_tile(
 // lies in shared memory, rows WG_TILE_SITES apart; otherwise sg0 / sg1 point
 // into the global panels themselves and rows are `ld` floats apart (a
 // population too large to stage: the warp's 128-byte row reads go through
-// L1 and L2, which keep the block's tile between iterations).  MASKED: a
+// L1 and L2, which keep the block's tile between problem tiles).  MASKED: a
 // problem's own left-out member j[q] adds an exact 0.0f instead of its
 // weight (a select, never a branch).  One (g0, g1, g2) read feeds NB
 // weights, and NB independent divide chains hide each other's latency.

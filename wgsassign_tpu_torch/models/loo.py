@@ -64,7 +64,6 @@ from wgsassign_tpu_torch.ops.loglik import (
     check_loglik_inputs,
     loglik_partition_sums,
 )
-from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
 from wgsassign_tpu_torch.parallel.runtime import PAD_AF, Runtime
 
 
@@ -121,11 +120,11 @@ def leave_one_out(
     f64_sums: bool = True,
     checkpoint_path: Optional[str] = None,
     af_t_dev=None,
-    chunk_op=loo_chunk,
+    chunk_op=None,
 ) -> LooResult:
     """``downsampled_cohort`` is a prebuilt likelihood-pass cohort (the
-    streamed form of ``downsampled``).  ``chunk_op`` is the LOO chunk
-    function (see
+    streamed form of ``downsampled``).  ``chunk_op`` is None (the
+    ``loo_chunk`` kernel on a GPU) or a LOO chunk function (see
     :func:`wgsassign_tpu_torch.ops.fused_em.em_maf_loo_group_fused`).
     Under the runtime's ``debug_checks`` the likelihood inputs are
     sanitised first (:func:`check_loglik_inputs`)."""
@@ -281,7 +280,7 @@ def _column_loglik(src, mini_bank, col_j, num_partitions, f64_sums,
 
 
 def _loo_group_em(rt, cohort, members_d, m_real, max_iter, tol,
-                  chunk_ckpt_path=None, chunk_op=loo_chunk):
+                  chunk_ckpt_path=None, chunk_op=None):
     """One population's batched LOO EM.  Returns ``(f [n_p, M] on the
     device, iters, converged, engine)``: the chunked EM (the ``loo_chunk``
     kernel on a GPU), or under ``--no_pallas`` the plain

@@ -72,7 +72,6 @@ from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_sites_batch_fused,
 )
 from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk
-from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk
 from wgsassign_tpu_torch.ops.zscore_ops import kept_slot_sums
 from wgsassign_tpu_torch.ops.ztables import (
     PARTIAL_BYTES,
@@ -437,7 +436,7 @@ def reference_z_scores(
     verbose: bool = False,
     block_bytes: Optional[int] = None,
     error_rate: float = SEQ_ERROR_RATE,
-    zloo_op=zloo_chunk,
+    zloo_op=None,
     sites_op=sites_chunk,
     timer=None,
     f64_sums: bool = True,
@@ -447,8 +446,8 @@ def reference_z_scores(
 
     ``ad`` is the cohort's :class:`DeviceDepths`, or a host ``[M, 2N]``
     array, uploaded once (:func:`upload_allele_depths`).  The reference's
-    serial per-individual EM re-runs run as batched chunked EMs:
-    loo-structured (``zloo_op``, the ``zloo_chunk`` kernel on a GPU) when
+    serial per-individual EM re-runs run as batched EMs: loo-structured
+    (``zloo_op`` None: the ``zloo_chunk`` kernel on a GPU) when
     the kept fraction is at least :data:`LOO_STRUCTURED_FILL`, gathered
     (``sites_op``, the ``sites_chunk`` kernel) otherwise.  The twins may be
     passed as ``zloo_op``/``sites_op`` to compare on a GPU.  ``timer`` and

@@ -2,29 +2,43 @@
 ``em_maf_loo_group_fused``, ``em_maf_loo_subset_fused`` and
 ``em_maf_sites_batch_fused`` in ``wgsassign_tpu/ops/pallas_emmaf.py``).
 
-Each chunk runs T EM iterations in one kernel launch (:func:`em_chunk`,
-:func:`loo_chunk`, :func:`zloo_chunk`, :func:`sites_chunk`), which also
-returns the per-iteration squared-update
-sums ``sq[T, P]``.  The host rebuilds each problem's exact RMSE sequence
-from ``sq``; when a problem converges inside a chunk, the chunk is replayed
-from its snapshot with exact per-problem limits, so every problem stops at
-the iteration an independent serial run would (``_drive_chunks``, copied
-from the JAX package).  ``sq`` reaches the host once per chunk; the AF
-panels stay on the device.
+Two drivers, chosen by kernel:
 
-Padded sites start at ``_EM_EPS``, the fixed point of the (1, 0) padding GL
-pattern, so they add exactly 0 to every ``sq``.
+- ``em_chunk`` and ``sites_chunk``, bound by the bytes of their GL planes,
+  run T EM iterations a launch (:func:`em_chunk`, :func:`sites_chunk`),
+  which also returns the per-iteration squared-update sums ``sq[T, P]``.
+  The host rebuilds each problem's exact RMSE sequence from ``sq``; when a
+  problem converges inside a chunk, the chunk is replayed from its snapshot
+  with exact per-problem limits, so every problem stops at the iteration an
+  independent serial run would (``_drive_chunks``, copied from the JAX
+  package).  ``sq`` reaches the host once per chunk.
+- ``loo_chunk`` and ``zloo_chunk``, bound by their operations (49 x 48
+  weights a site against 392 bytes of GLs), run one iteration a launch in
+  place (:func:`loo_step`, :func:`zloo_step`), and the convergence test runs
+  on the device after each (:class:`~wgsassign_tpu_torch.ops.em_decide.
+  Convergence`): a problem stops at its own iteration with nothing replayed
+  (``_drive_steps``).  The host queues iterations ahead and reads the count
+  of running problems ``FLAG_LAG`` iterations late; the launches after the
+  last problem stopped return at once.  The iterations and the state equal
+  ``_drive_chunks``'s to the bit.  A chunk function passed as ``chunk_op``
+  (a twin with the JAX package's chunk contract, run as a reference) runs
+  under ``_drive_chunks`` instead, with the host's test.
 
-With several ranks each rank runs the chunks on its window of the site axis;
-``reduce`` (``Runtime.all_reduce_sum``) sums ``sq`` over the ranks before
-the host reads it, so every rank derives the same RMSEs, limits and replay
-decision (counterpart of the ``psum`` in the JAX package's
-``_sharded_*_chunk_fn``).
+The AF panels stay on the device.  Padded sites start at ``_EM_EPS``, the
+fixed point of the (1, 0) padding GL pattern, so they add exactly 0 to
+every ``sq``.
+
+With several ranks each rank runs the iterations on its window of the site
+axis; ``reduce`` (``Runtime.all_reduce_sum``) sums ``sq`` over the ranks
+before the test, so every rank derives the same RMSEs, stops and replays
+(counterpart of the ``psum`` in the JAX package's ``_sharded_*_chunk_fn``).
 
 Under a recording profiler each chunk is the span ``wgsa.em.chunk``, with
-``wgsa.em.sync`` (the ``sq`` fetch) and ``wgsa.em.replay`` inside it, and
-adds to the counters ``<kernel>.launches``, ``.replays``,
-``.launched_iters``, ``.useful_iters`` and ``host_syncs``
+``wgsa.em.sync`` (the ``sq`` fetch) and ``wgsa.em.replay`` inside it; an
+EM of ``_drive_steps`` is the span ``wgsa.em.steps``, with its final fetch
+``wgsa.em.sync`` inside.  Both add to the counters ``<kernel>.launches``,
+``.launched_iters``, ``.useful_iters`` and ``host_syncs``; ``_drive_chunks``
+to ``.replays``, ``_drive_steps`` to ``.tail_launches``
 (``wgsassign_tpu_torch/obs/profiling.py``).
 """
 
@@ -37,12 +51,18 @@ import torch
 
 from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.em_chunk import em_chunk
+from wgsassign_tpu_torch.ops.em_decide import Convergence
 from wgsassign_tpu_torch.ops.emmaf import _EM_EPS
-from wgsassign_tpu_torch.ops.loo_chunk import loo_chunk
+from wgsassign_tpu_torch.ops.loo_chunk import loo_step
 from wgsassign_tpu_torch.ops.sites_chunk import sites_chunk
-from wgsassign_tpu_torch.ops.zloo_chunk import zloo_chunk
+from wgsassign_tpu_torch.ops.zloo_chunk import zloo_step
 
 _F32 = torch.float32
+
+# _drive_steps reads the count of running problems after iteration i once it
+# has queued iteration i + FLAG_LAG: the card has that much work queued while
+# the host waits, and at most FLAG_LAG launches follow the last stop
+FLAG_LAG = 2
 
 
 def _device_init_ft(shape, m_real, device):
@@ -147,6 +167,19 @@ def em_maf_pops_fused(
     return f, iters, ~active
 
 
+def _start(checkpoint, put_ft, ft, n_problems, max_iter):
+    """``(ft, iters, active, it)`` to start a driven EM from: the
+    checkpoint's state where it holds one, else ``ft`` at iteration 0 with
+    every problem running."""
+    state = None if checkpoint is None else checkpoint.load()
+    if state is None:
+        return (ft, np.full(n_problems, max_iter, dtype=np.int32),
+                np.ones(n_problems, dtype=bool), 0)
+    ft_h2, iters, active, it = state
+    return (put_ft(np.asarray(ft_h2, np.float32)),
+            np.asarray(iters, np.int32), np.asarray(active, bool), it)
+
+
 def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
                   chunk, checkpoint, reduce=None, *, name):
     """Shared chunk/replay orchestration for the fused EMs.
@@ -178,16 +211,8 @@ def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
     m_real_vec = np.broadcast_to(
         np.asarray(m_real, np.float64), (n_problems,)
     )
-    iters = np.full(n_problems, max_iter, dtype=np.int32)
-    active = np.ones(n_problems, dtype=bool)
-    it = 0
-    if checkpoint is not None:
-        state = checkpoint.load()
-        if state is not None:
-            ft_h2, iters, active, it = state
-            ft = put_ft(np.asarray(ft_h2, np.float32))
-            iters = np.asarray(iters, np.int32)
-            active = np.asarray(active, bool)
+    ft, iters, active, it = _start(checkpoint, put_ft, ft, n_problems,
+                                   max_iter)
     while it < max_iter and active.any():
         with span("wgsa.em.chunk"):
             T = min(chunk, max_iter - it)
@@ -234,6 +259,93 @@ def _drive_chunks(run_chunk, put_ft, ft, n_problems, max_iter, tol, m_real,
     return ft, iters, active
 
 
+class _LaggedCount:
+    """The running-problem count of each iteration, read ``FLAG_LAG``
+    iterations after it was queued: copied into pinned memory behind an
+    event, so reading it waits for that iteration alone, not for the
+    iterations queued after it."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        slots = FLAG_LAG + 1
+        self.host = torch.zeros(slots, dtype=torch.int64,
+                                pin_memory=self.cuda)
+        self.events = ([torch.cuda.Event() for _ in range(slots)]
+                       if self.cuda else None)
+        self.pushed = 0
+
+    def push(self, running: torch.Tensor) -> None:
+        """Queue the copy of this iteration's count (one element)."""
+        k = self.pushed % self.host.shape[0]
+        self.host[k:k + 1].copy_(running, non_blocking=True)
+        if self.cuda:
+            self.events[k].record()
+        self.pushed += 1
+
+    def none_running(self) -> bool:
+        """Whether every problem had stopped ``FLAG_LAG`` iterations before
+        the last one pushed (False until more than that were pushed); waits
+        for that iteration on the device."""
+        if self.pushed <= FLAG_LAG:
+            return False
+        k = (self.pushed - 1 - FLAG_LAG) % self.host.shape[0]
+        if self.cuda:
+            self.events[k].synchronize()
+        return int(self.host[k]) == 0
+
+
+def _drive_steps(run_step, put_ft, ft, n_problems, max_iter, tol, m_real,
+                 checkpoint, reduce=None, *, name, save_every=8):
+    """One iteration a launch, the convergence test on the device.
+
+    ``run_step(ft, limits [P] float32 on the device)`` runs one iteration
+    of every problem whose limit is 1 and returns ``(ft_new, sq_part)``:
+    the state (``ft`` itself where the step works in place) and the
+    squared-update partials ``[..., P]`` that :class:`Convergence` sums.
+    After each step the test stops the problems that converged, so each
+    stops at its own iteration, as ``_drive_chunks``'s replays make it do.
+    The host waits for nothing but the running count ``FLAG_LAG``
+    iterations back (:class:`_LaggedCount`), then fetches the iterations
+    once.
+
+    ``m_real``, ``reduce``, ``checkpoint`` and ``put_ft`` as in
+    :func:`_drive_chunks`; the checkpoint is offered the state every
+    ``save_every`` iterations (a fetch each time).  Counters: ``name`` +
+    ``.launches``, ``.launched_iters`` (problem-iterations run, counted on
+    the device), ``.tail_launches`` (launches in which no problem ran),
+    ``.useful_iters``; ``host_syncs`` counts the fetches.
+
+    Returns ``(ft, iters [P] int32, active [P] bool)``.
+    """
+    ft, iters, active, it = _start(checkpoint, put_ft, ft, n_problems,
+                                   max_iter)
+    conv = Convergence(iters, active, m_real, tol, ft.device)
+    running = _LaggedCount(ft.device)
+    go = bool(active.any())
+    with span("wgsa.em.steps"):
+        while go and it < max_iter:
+            ft, sq_part = run_step(ft, conv.limits)
+            count(name + ".launches")
+            conv.update(sq_part, it, reduce)
+            running.push(conv.running)
+            it += 1
+            if checkpoint is not None and (it % save_every == 0
+                                           or it == max_iter):
+                iters, active, _, _ = conv.fetch()
+                count("host_syncs")
+                checkpoint.maybe_save(ft, iters, active, it)
+            go = not running.none_running()
+        with span("wgsa.em.sync"):
+            iters, active, ran, tails = conv.fetch()
+    if checkpoint is not None:
+        checkpoint.clear()
+    count("host_syncs")
+    count(name + ".launched_iters", ran)
+    count(name + ".tail_launches", tails)
+    count(name + ".useful_iters", iters.sum())
+    return ft, iters, active
+
+
 def em_maf_loo_group_fused(
     g0p,
     g1p,
@@ -243,18 +355,23 @@ def em_maf_loo_group_fused(
     chunk: int = 8,
     checkpoint=None,
     fast_math: bool = True,
-    chunk_op=loo_chunk,
+    chunk_op=None,
     reduce=None,
     n_local=None,
 ):
-    """Batched leave-one-out EM for one population in chunks of ``chunk``
-    fused iterations.
+    """Batched leave-one-out EM for one population, one iteration a launch
+    with the convergence test on the device (``_drive_steps``).
 
     Same contract as the plain :func:`wgsassign_tpu_torch.ops.emmaf.
     em_maf_loo_group`: ``g0p``/``g1p`` are the members' ``[n_p, M]`` GL
     panels (sites >= ``m_real`` hold the (1, 0) padding pattern); returns
     ``(f [n_p, M] on the device, iters [n_p] int32, converged [n_p] bool)``.
-    ``fast_math``, ``chunk_op`` and ``reduce`` as in
+    ``chunk_op`` None runs :func:`loo_step` (the kernel in place on a GPU,
+    the twin on the CPU) under ``_drive_steps``, and ``chunk`` is the
+    checkpoint's interval in iterations (the JAX package's chunk length).  A
+    chunk function with :func:`loo_chunk_twin`'s signature (the twin, as a
+    reference on the GPU) runs ``chunk`` iterations a call under
+    ``_drive_chunks``.  ``fast_math`` and ``reduce`` as in
     :func:`em_maf_pops_fused`; with ``reduce``, ``m_real`` is the global
     site count and ``n_local`` the real sites of this rank's window.
     """
@@ -264,13 +381,23 @@ def em_maf_loo_group_fused(
     def put_ft(arr):
         return torch.from_numpy(_fit_panel(arr, n_p, m)).to(device)
 
+    ft = _device_init_ft((n_p, m), m_real if n_local is None else n_local,
+                         device)
+    _use_jax_layout(checkpoint, -(-n_p // 8) * 8, m_real)
+    if chunk_op is None:
+        def run_step(ft_in, limits):
+            return ft_in, loo_step(g0p, g1p, ft_in, limits, n_p, fast_math)
+
+        ft, iters, active = _drive_steps(
+            run_step, put_ft, ft, n_p, max_iter, tol, m_real, checkpoint,
+            reduce, name="loo_chunk", save_every=chunk,
+        )
+        return ft, iters, ~active
+
     def run_chunk(ft_in, limits_vec, T):
         limits = torch.from_numpy(limits_vec).to(device)
         return chunk_op(g0p, g1p, ft_in, limits, n_p, T, fast_math)
 
-    ft = _device_init_ft((n_p, m), m_real if n_local is None else n_local,
-                         device)
-    _use_jax_layout(checkpoint, -(-n_p // 8) * 8, m_real)
     ft, iters, active = _drive_chunks(
         run_chunk, put_ft, ft, n_p, max_iter, tol, m_real, chunk, checkpoint,
         reduce, name="loo_chunk",
@@ -288,32 +415,46 @@ def em_maf_loo_subset_fused(
     tol: float,
     chunk: int = 8,
     fast_math: bool = True,
-    chunk_op=zloo_chunk,
+    chunk_op=None,
     reduce=None,
 ):
-    """B leave-one-out EMs of one population over the full site axis, in
-    chunks of ``chunk`` fused iterations (the z-score reference mode's
-    loo-structured form).
+    """B leave-one-out EMs of one population over the full site axis, one
+    iteration a launch with the convergence test on the device (the
+    z-score reference mode's loo-structured form).
 
     Same contract as the plain :func:`wgsassign_tpu_torch.ops.emmaf.
     em_maf_loo_subset`: ``g0p``/``g1p`` are the population's ``[n_p, M]``
     member panels, ``leave_out`` the ``[B]`` member rows left out,
     ``site_weight`` the ``[B, M]`` kept-site masks on the device and
     ``m_real`` the ``[B]`` kept-site counts; returns ``(f [B, M] on the
-    device, iters [B] int32, converged [B] bool)``.  ``fast_math``,
-    ``chunk_op`` and ``reduce`` as in :func:`em_maf_pops_fused`.
+    device, iters [B] int32, converged [B] bool)``.  ``chunk_op`` None runs
+    :func:`zloo_step` under ``_drive_steps``; a chunk function with
+    :func:`zloo_chunk_twin`'s signature runs ``chunk`` iterations a call
+    under ``_drive_chunks``, as in :func:`em_maf_loo_group_fused`.
+    ``fast_math`` and ``reduce`` as in :func:`em_maf_pops_fused`.
     """
     n_p, m = g0p.shape
     device = g0p.device
     leave = torch.as_tensor(np.asarray(leave_out, np.int32), device=device)
     b = leave.shape[0]
 
+    ft = torch.full((b, m), 0.25, dtype=_F32, device=device)
+    if chunk_op is None:
+        def run_step(ft_in, limits):
+            return ft_in, zloo_step(g0p, g1p, ft_in, site_weight, leave,
+                                    limits, n_p, fast_math)
+
+        ft, iters, active = _drive_steps(
+            run_step, None, ft, b, max_iter, tol, m_real, None, reduce,
+            name="zloo_chunk",
+        )
+        return ft, iters, ~active
+
     def run_chunk(ft_in, limits_vec, T):
         limits = torch.from_numpy(limits_vec).to(device)
         return chunk_op(g0p, g1p, ft_in, site_weight, leave, limits, n_p, T,
                         fast_math)
 
-    ft = torch.full((b, m), 0.25, dtype=_F32, device=device)
     ft, iters, active = _drive_chunks(
         run_chunk, None, ft, b, max_iter, tol, m_real, chunk, None, reduce,
         name="zloo_chunk",

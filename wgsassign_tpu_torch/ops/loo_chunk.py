@@ -1,14 +1,17 @@
-"""One chunk of T fused leave-one-out EM iterations for one population: the
-CUDA kernel (``csrc/loo_chunk.cu``) and its plain PyTorch twin.
+"""One leave-one-out EM iteration for one population, in place: the CUDA
+kernel (``csrc/loo_chunk.cu``) and its plain PyTorch twin.
 
 Counterpart of ``loo_chunk_pallas`` / ``_loo_chunk_kernel`` in
-``wgsassign_tpu/ops/pallas_emmaf.py``: problem j (member j left out) takes
-``min(T, limits[j])`` updates
+``wgsassign_tpu/ops/pallas_emmaf.py``, which fuse T iterations a launch:
+problem j (member j left out) takes ``min(T, limits[j])`` updates
 ``f_j <- clip(sum_{i != j, i < n_real} w(g_i, f_j) / (n_real - 1))``, and
 ``sq[t, j]`` is its squared update of iteration t summed over the sites.
-``n_real`` is a run-time value; rows at or past it are padding.
+``n_real`` is a run-time value; rows at or past it are padding.  The twin
+(:func:`loo_chunk_twin`) keeps that chunk contract; the kernel runs one
+iteration a launch (T = 1), which the EM driver tests for convergence on
+the device before the next (``ops/fused_em.py::_drive_steps``).
 
-:func:`loo_chunk` launches the kernel for CUDA tensors and runs the twin for
+:func:`loo_step` launches the kernel for CUDA tensors and runs the twin for
 CPU tensors; nothing else chooses between them.
 """
 
@@ -70,10 +73,12 @@ def loo_chunk_geometry(n_real: int) -> tuple:
 
 def loo_chunk_twin(g0p, g1p, ft, limits, n_real: int, T: int,
                    fast_math: bool = True):
-    """Plain PyTorch version of the chunk, same signature and result as
-    :func:`loo_chunk`.  Loops over members in ascending order, adding member
-    i's weights under every problem's AF with problem i masked out, so no
-    ``[P, P, M]`` tensor is built."""
+    """Plain PyTorch version of T fused iterations, returning ``(ft_new
+    [P, M], sq [T, P])`` in fresh tensors (arguments as :func:`loo_step`,
+    limits up to T).  At T = 1 it is the kernel's iteration, with the
+    blocks' partials summed.  Loops over members in ascending order, adding
+    member i's weights under every problem's AF with problem i masked out,
+    so no ``[P, P, M]`` tensor is built."""
     p = ft.shape[0]
     rows = torch.arange(p, device=ft.device)
     inv = 1.0 / (torch.tensor(float(n_real), dtype=_F32) - 1.0)
@@ -93,22 +98,27 @@ def loo_chunk_twin(g0p, g1p, ft, limits, n_real: int, T: int,
     return f, sq
 
 
-def loo_chunk(g0p, g1p, ft, limits, n_real: int, T: int,
-              fast_math: bool = True):
-    """T fused LOO EM iterations for one population.
+def loo_step(g0p, g1p, ft, limits, n_real: int, fast_math: bool = True):
+    """One LOO EM iteration for one population, in place in ``ft``.
 
     Args:
       g0p, g1p: float32 ``[P, M]`` member GL panels, site-minor; padded
         sites hold the (1, 0) GL pattern.
-      ft: float32 ``[P, M]`` per-problem AF (padded sites at ``_EM_EPS``).
-      limits: float32 ``[P]`` per-problem update limits (<= T; 0 for
-        padded problem rows).
+      ft: float32 ``[P, M]`` per-problem AF (padded sites at ``_EM_EPS``),
+        updated in place.
+      limits: float32 ``[P]``: a problem with a limit above 0 takes the
+        update; a stopped one (0, as padded problem rows) keeps its row.
       n_real: real member count (<= P); the divisor is ``n_real - 1``.
 
-    Returns ``(ft_new [P, M], sq [T, P])`` in fresh tensors.
+    Returns the squared-update partials that :class:`wgsassign_tpu_torch.
+    ops.em_decide.Convergence` sums: the kernel's ``[blocks, P]`` (a block
+    in which every limit is 0 returns at once and writes none of them), the
+    twin's ``[1, P]``.
     """
     if g0p.device.type == "cpu":
-        return loo_chunk_twin(g0p, g1p, ft, limits, n_real, T, fast_math)
+        f, sq = loo_chunk_twin(g0p, g1p, ft, limits, n_real, 1, fast_math)
+        ft.copy_(f)
+        return sq
     if g0p.device.type != "cuda":
         raise ValueError(f"loo_chunk: no kernel for device {g0p.device}")
     p, m = ft.shape
@@ -121,12 +131,10 @@ def loo_chunk(g0p, g1p, ft, limits, n_real: int, T: int,
     warps, smem = loo_chunk_geometry(n_real)
     n_blocks = -(-m // LOO_SITES)
     aligned = _kernels.rows_aligned(m, g0p, g1p)
-    ft_new = torch.empty_like(ft)
-    sq_part = torch.empty((n_blocks, T, p), dtype=_F32, device=dev)
+    sq_part = torch.empty((n_blocks, p), dtype=_F32, device=dev)
     _kernels.launch(
         "loo_chunk", dev, g0p.data_ptr(), g1p.data_ptr(), ft.data_ptr(),
-        ft_new.data_ptr(), limits.data_ptr(), sq_part.data_ptr(), p, m,
-        n_real, T, warps, smem, int(aligned), int(bool(fast_math)),
+        limits.data_ptr(), sq_part.data_ptr(), p, m, n_real, warps, smem,
+        int(aligned), int(bool(fast_math)),
     )
-    sq = torch.sum(sq_part, dim=0, dtype=torch.float64).to(_F32)
-    return ft_new, sq
+    return sq_part

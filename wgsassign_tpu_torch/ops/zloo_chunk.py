@@ -1,17 +1,21 @@
-"""One chunk of T fused leave-one-out EM iterations of B z-score problems
-of one population: the CUDA kernel (``csrc/zloo_chunk.cu``) and its plain
-PyTorch twin.
+"""One leave-one-out EM iteration of B z-score problems of one population,
+in place: the CUDA kernel (``csrc/zloo_chunk.cu``) and its plain PyTorch
+twin.
 
 Counterpart of ``zloo_chunk_pallas`` / ``_zloo_chunk_kernel`` in
-``wgsassign_tpu/ops/pallas_emmaf.py``: problem b leaves out member
-``leave[b]`` and takes ``min(T, limits[b])`` updates
+``wgsassign_tpu/ops/pallas_emmaf.py``, which fuse T iterations a launch:
+problem b leaves out member ``leave[b]`` and takes ``min(T, limits[b])``
+updates
 ``f_b <- clip(sum_{i != leave[b], i < n_real} w(g_i, f_b) / (n_real - 1))``
 over the full site axis; its kept-site mask ``sw[b]`` enters only
 ``sq[t, b] = sum_s d * d * sw[b, s]``.  Rows of the member panel at or past
-``n_real`` are padding.
+``n_real`` are padding.  The twin (:func:`zloo_chunk_twin`) keeps that chunk
+contract; the kernel runs one iteration a launch (T = 1), which the EM
+driver tests for convergence on the device before the next
+(``ops/fused_em.py::_drive_steps``).
 
-:func:`zloo_chunk` launches the kernel for CUDA tensors and runs the twin
-for CPU tensors; nothing else chooses between them.
+:func:`zloo_step` launches the kernel for CUDA tensors and runs the twin for
+CPU tensors; nothing else chooses between them.
 """
 
 from __future__ import annotations
@@ -77,8 +81,10 @@ def zloo_chunk_geometry(n_real: int, b: int) -> tuple:
 
 def zloo_chunk_twin(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
                     fast_math: bool = True):
-    """Plain PyTorch version of the chunk, same signature and result as
-    :func:`zloo_chunk`.  Loops over members in ascending order, adding
+    """Plain PyTorch version of T fused iterations, returning ``(ft_new
+    [B, M], sq [T, B])`` in fresh tensors (arguments as :func:`zloo_step`,
+    limits up to T).  At T = 1 it is the kernel's iteration, with the
+    blocks' partials summed.  Loops over members in ascending order, adding
     member i's weights under every problem's AF with the problems that
     leave i out masked, so no ``[B, n_p, M]`` tensor is built."""
     b = ft.shape[0]
@@ -100,26 +106,33 @@ def zloo_chunk_twin(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
     return f, sq
 
 
-def zloo_chunk(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
-               fast_math: bool = True):
-    """T fused LOO-subset EM iterations for B problems of one population.
+def zloo_step(g0p, g1p, ft, sw, leave, limits, n_real: int,
+              fast_math: bool = True):
+    """One LOO-subset EM iteration for B problems of one population, in
+    place in ``ft``.
 
     Args:
       g0p, g1p: float32 ``[np_pad, M]`` member GL panels, site-minor;
         padded sites hold the (1, 0) GL pattern, rows >= ``n_real`` are
         padding.
-      ft: float32 ``[B, M]`` per-problem AF.
+      ft: float32 ``[B, M]`` per-problem AF, updated in place.
       sw: float32 ``[B, M]`` per-problem kept-site masks (0 on padding).
       leave: int32 ``[B]`` member row each problem leaves out (a row
         outside ``[0, n_real)`` leaves nothing out).
-      limits: float32 ``[B]`` per-problem update limits (<= T).
+      limits: float32 ``[B]``: a problem with a limit above 0 takes the
+        update; a stopped one (0) keeps its row and its ``sw`` is not read.
       n_real: real member count (<= np_pad); the divisor is ``n_real - 1``.
 
-    Returns ``(ft_new [B, M], sq [T, B])`` in fresh tensors.
+    Returns the squared-update partials that :class:`wgsassign_tpu_torch.
+    ops.em_decide.Convergence` sums: the kernel's ``[blocks, B]`` (a block
+    in which every limit is 0 returns at once and writes none of them), the
+    twin's ``[1, B]``.
     """
     if g0p.device.type == "cpu":
-        return zloo_chunk_twin(g0p, g1p, ft, sw, leave, limits, n_real, T,
-                               fast_math)
+        f, sq = zloo_chunk_twin(g0p, g1p, ft, sw, leave, limits, n_real, 1,
+                                fast_math)
+        ft.copy_(f)
+        return sq
     if g0p.device.type != "cuda":
         raise ValueError(f"zloo_chunk: no kernel for device {g0p.device}")
     np_pad, m = g0p.shape
@@ -140,13 +153,11 @@ def zloo_chunk(g0p, g1p, ft, sw, leave, limits, n_real: int, T: int,
     # still running then form a prefix of each of its problem tiles
     order = torch.argsort(limits, descending=True, stable=True).to(
         torch.int32)
-    ft_new = torch.empty_like(ft)
-    sq_part = torch.empty((n_blocks, T, b), dtype=_F32, device=dev)
+    sq_part = torch.empty((n_blocks, b), dtype=_F32, device=dev)
     _kernels.launch(
         "zloo_chunk", dev, g0p.data_ptr(), g1p.data_ptr(), ft.data_ptr(),
-        ft_new.data_ptr(), sw.data_ptr(), leave.data_ptr(), order.data_ptr(),
-        limits.data_ptr(), sq_part.data_ptr(), b, m, n_real, T, warps, smem,
+        sw.data_ptr(), leave.data_ptr(), order.data_ptr(),
+        limits.data_ptr(), sq_part.data_ptr(), b, m, n_real, warps, smem,
         int(aligned), int(bool(fast_math)),
     )
-    sq = torch.sum(sq_part, dim=0, dtype=torch.float64).to(_F32)
-    return ft_new, sq
+    return sq_part
