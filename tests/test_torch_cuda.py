@@ -1166,6 +1166,55 @@ def test_reference_z_100k_card_vs_cpu(cuda, single_read, structure, engine):
     np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-4)
 
 
+def test_gathered_z_scores_are_a_span_and_counted_on_the_card(
+        cuda, monkeypatch):
+    """On the card's kernel path the gathered z-score EM records the span
+    ``wgsa.zscore.gather`` once an AF group (6, 6, 4), with device time, and
+    the two gather counters at their hand counts (populations of 5 and 11:
+    ``p_pad`` 10); the ``sites_chunk`` kernel is launched as often as the
+    driver counts its chunks and their replays (``sites_chunk.launches``
+    and ``.replays``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import wgsassign_tpu_torch.models.zscore as zmod
+    from wgsassign_tpu_torch.io.ids import population_map
+    from wgsassign_tpu_torch.models.common import (
+        to_device,
+        upload_allele_depths,
+    )
+    from wgsassign_tpu_torch.obs import profiling as prof
+    from wgsassign_tpu_torch.parallel.runtime import make_runtime
+
+    beagle, _, ad = _jittered_cohort(100_000, 16, 2, 25)
+    labels = np.repeat(["p0", "p1"], [5, 11])
+    popmap = population_map(beagle.sample_names, list(labels))
+    cohort = to_device(beagle, make_runtime(cuda))
+    depths = upload_allele_depths(ad, cohort)
+    monkeypatch.setattr(zmod, "AF_GROUP_MAX_INDS", 6)
+    counts, spans = prof.counters(), prof.span_totals()
+    launched = _kernels.launches["sites_chunk"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        res = zmod.reference_z_scores(beagle, depths, popmap, cohort=cohort,
+                                      single_read_threshold=True,
+                                      block_bytes=1)
+    got = {k: v - counts.get(k, 0) for k, v in prof.counters().items()}
+    after = prof.span_totals()
+
+    def calls(name):
+        return after[name]["calls"] - spans.get(name, {"calls": 0})["calls"]
+
+    assert res.structure == "gathered" and res.engine == "sites_chunk"
+    assert calls("wgsa.zscore.gather") == calls("wgsa.zscore.em") == 3
+    assert after["wgsa.zscore.gather"]["device_s"] > 0
+    assert got["sites_chunk.launches"] > 0
+    runs = got["sites_chunk.launches"] + got.get("sites_chunk.replays", 0)
+    assert _kernels.launches["sites_chunk"] - launched == runs
+    others = np.where(labels == "p0", 4, 10)
+    s_pad = 1 << (int(res.loci.max()) - 1).bit_length()
+    assert got["zscore.gather_useful"] == int((others * res.loci).sum())
+    assert got["zscore.gather_launched"] == 16 * 10 * s_pad
+
+
 def _zsums_operands(dev, dtype, c, r, seed, nan_padding=False):
     """The z sums' kept-slot operands on ``dev``: five individuals (cohort
     columns 3-7 of 12) with 30,001, 29,000, 0, 17 and 20,000 kept slots of

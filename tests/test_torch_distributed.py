@@ -27,6 +27,7 @@ import re
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pandas as pd
@@ -53,21 +54,50 @@ def _worker_module():
     return mod
 
 
-def _free_ports(n):
-    """A base port with ``n`` free ports after it."""
+def _hold_ports(n):
+    """``(base, sockets)``: ``n`` consecutive local ports from ``base``, each
+    bound by a socket of this process (``SO_REUSEADDR``, not listening)
+    until the caller closes them.  A held port is refused to every other
+    plain ``bind`` (another test's listening socket among them), yet rank
+    0's store (which sets ``SO_REUSEADDR`` too) binds and listens on it:
+    the ports stay free for the ranks for as long as they run, however
+    many other processes open ports meanwhile."""
     while True:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            base = s.getsockname()[1]
-        if base + n >= 65535:
-            continue
+        held = []
         try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                base = s.getsockname()[1]
+            if base + n >= 65535:
+                continue
             for p in range(base, base + n):
-                with socket.socket() as s:
-                    s.bind(("127.0.0.1", p))
-            return base
+                s = socket.socket()
+                held.append(s)
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind(("127.0.0.1", p))
+            return base, held
         except OSError:
-            continue
+            for s in held:
+                s.close()
+
+
+def _wait_ranks(procs, err_paths, wait_s):
+    """Wait for every rank, but no longer than ``wait_s`` seconds in all and
+    no longer than until one fails.  Returns each rank's exit code (None
+    for a rank still running, which the caller stops) and the end of each
+    rank's standard error, for the failure message."""
+    deadline = time.monotonic() + wait_s
+    while any(p.poll() is None for p in procs):
+        if (any(p.returncode not in (None, 0) for p in procs)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.1)
+    codes = [p.poll() for p in procs]
+    report = "".join(
+        f"\n-- rank {r}, exit {c}, its stderr's end:\n"
+        f"{err.read_text()[-3000:]}"
+        for r, (c, err) in enumerate(zip(codes, err_paths)))
+    return codes, report
 
 
 @pytest.fixture(scope="module")
@@ -168,7 +198,7 @@ def runs(files):
     cmd_file = str(d / "two_cmds.json")
     with open(cmd_file, "w") as fh:
         json.dump(two_cmds, fh)
-    port = _free_ports(len(two_cmds))
+    port, held = _hold_ports(len(two_cmds))
     env = dict(os.environ)
     for var in ("WGSA_COORDINATOR_ADDRESS", "WGSA_NUM_PROCESSES",
                 "WGSA_PROCESS_ID"):
@@ -196,8 +226,8 @@ def runs(files):
             with contextlib.redirect_stdout(io.StringIO()):
                 jax_main([*cmds[name], "--devices", "1", "-o",
                           prefix("jax", name)])
-        for proc in procs:
-            proc.wait(timeout=WAIT_S)
+        codes, report = _wait_ranks(
+            procs, [d / f"rank{rank}.err" for rank in range(WORLD)], WAIT_S)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -206,13 +236,13 @@ def runs(files):
         for out, err in sinks:
             out.close()
             err.close()
+        for sock in held:
+            sock.close()
+    assert codes == [0] * WORLD, f"the ranks failed: {codes}{report}"
     outs = []
-    for rank, proc in enumerate(procs):
+    for rank in range(WORLD):
         out = (d / f"rank{rank}.out").read_text()
-        err = (d / f"rank{rank}.err").read_text()
-        assert proc.returncode == 0, (
-            f"rank {rank} failed ({proc.returncode}):\n{err[-3000:]}")
-        assert "ALL_COMMANDS_DONE" in out
+        assert "ALL_COMMANDS_DONE" in out, report
         outs.append(out)
     # rank 0's log, cut into the commands' sections
     sections = outs[0].split("== command ")[1:]

@@ -252,3 +252,61 @@ def test_maybe_profile_hands_back_the_runs_counts(tmp_path):
     with prof.maybe_profile(None, torch.device("cpu")) as counts:
         prof.count("test_maybe.n", 2)
     assert counts == {}
+
+
+@pytest.fixture(scope="module")
+def z_cohort():
+    """600 sites x 24 individuals in populations of 5, 9 and 10 (uneven, so
+    the gathered panels pad the member axis), with their read counts."""
+    gl, _, ad = synth_cohort(600, 24, n_pops=3, seed=5)
+    labels = np.repeat(["p0", "p1", "p2"], [5, 9, 10])
+    beagle = BeagleData(gl, [f"Ind{i}" for i in range(24)],
+                        [f"s{j}" for j in range(600)])
+    popmap = population_map(beagle.sample_names, list(labels))
+    return beagle, popmap, ad, to_device(beagle, make_runtime("cpu"))
+
+
+def _z_recorded(z_cohort, monkeypatch, single_read):
+    """Reference z-scores of all 24 in AF groups of at most 5, under the
+    profiler: the result, the counters and span calls it added."""
+    import wgsassign_tpu_torch.models.zscore as zmod
+
+    beagle, popmap, ad, dev = z_cohort
+    monkeypatch.setattr(zmod, "AF_GROUP_MAX_INDS", 5)
+    counts, spans = prof.counters(), prof.span_totals()
+    with profile():
+        res = zmod.reference_z_scores(beagle, ad, popmap, cohort=dev,
+                                      single_read_threshold=single_read,
+                                      block_bytes=1)
+    calls = {name: t["calls"] - spans.get(name, {"calls": 0})["calls"]
+             for name, t in prof.span_totals().items()}
+    return res, _delta(counts), calls
+
+
+def test_gathered_panels_are_a_span_and_counted(z_cohort, monkeypatch):
+    """The gathered EM's member-panel gathers are one ``wgsa.zscore.gather``
+    span an AF group (groups of 5, 5, 5, 5, 4); ``zscore.gather_useful``
+    counts each problem's real members (its population less itself) times
+    its kept sites, ``zscore.gather_launched`` every slot of the groups'
+    ``[B, p_pad, s_pad]`` panels: ``p_pad`` the largest population less
+    one, ``s_pad`` the largest kept count rounded up to a power of two."""
+    _, popmap, _, _ = z_cohort
+    res, got, calls = _z_recorded(z_cohort, monkeypatch, True)
+    assert res.structure == "gathered" and res.engine == "sites_chunk"
+    assert calls["wgsa.zscore.gather"] == calls["wgsa.zscore.em"] == 5
+    others = np.asarray([popmap.members_of(popmap.pop_labels[i]).size - 1
+                         for i in range(24)])
+    s_pad = 1 << (int(res.loci.max()) - 1).bit_length()
+    assert got["zscore.gather_useful"] == int((others * res.loci).sum())
+    assert got["zscore.gather_launched"] == 24 * 9 * s_pad
+    assert got["zscore.gather_useful"] < got["zscore.gather_launched"]
+
+
+def test_loo_structured_z_scores_gather_no_panels(z_cohort, monkeypatch):
+    """The loo-structured EM gathers no ``[B, P, S]`` panels: neither the
+    span nor the counters are recorded."""
+    res, got, calls = _z_recorded(z_cohort, monkeypatch, False)
+    assert res.structure == "loo-structured"
+    assert calls["wgsa.zscore.em"] == 5
+    assert calls.get("wgsa.zscore.gather", 0) == 0
+    assert not {"zscore.gather_useful", "zscore.gather_launched"} & set(got)

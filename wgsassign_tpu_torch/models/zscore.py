@@ -65,7 +65,7 @@ from wgsassign_tpu_torch.models.common import (
     upload_allele_depths,
 )
 from wgsassign_tpu_torch.models.loo import _member_panels
-from wgsassign_tpu_torch.obs.profiling import span
+from wgsassign_tpu_torch.obs.profiling import count, span
 from wgsassign_tpu_torch.ops.emmaf import em_maf_loo_subset, em_maf_sites_batch
 from wgsassign_tpu_torch.ops.fused_em import (
     em_maf_loo_subset_fused,
@@ -452,6 +452,12 @@ def reference_z_scores(
     (``sites_op``, the ``sites_chunk`` kernel) otherwise.  The twins may be
     passed as ``zloo_op``/``sites_op`` to compare on a GPU.  ``timer`` and
     ``f64_sums`` as in :func:`_run_blocks`.
+
+    Under a recording profiler the gathered form's ``[B, p_pad, s_pad]``
+    member-panel gathers of each AF group are the span
+    ``wgsa.zscore.gather`` (inside ``wgsa.zscore.em``), and the counters
+    ``zscore.gather_useful`` and ``zscore.gather_launched`` add the group's
+    real member x kept-site slots and all its panel slots.
     """
     if cohort is None:
         cohort = to_device(beagle, runtime)
@@ -537,7 +543,14 @@ def reference_z_scores(
             mem_mask[slot, : m.size] = 1.0
         k = block.keep[:, None, :]
         mm = torch.from_numpy(mem).to(dev)[:, :, None]
-        g0p, g1p = cohort.g0[k, mm], cohort.g1[k, mm]
+        with span("wgsa.zscore.gather"):
+            g0p, g1p = cohort.g0[k, mm], cohort.g1[k, mm]
+        # panel slots that hold a real member at a kept site, of all the
+        # [B, p_pad, s_pad] slots gathered
+        count("zscore.gather_useful", sum(
+            members_of[i].size * int(s)
+            for i, s in zip(block.inds, block.s_glob)))
+        count("zscore.gather_launched", g0p.numel())
         s_real_g = np.maximum(block.s_glob, 1.0)
         mask_d = torch.from_numpy(mem_mask).to(dev)
         if rt.use_kernels:
